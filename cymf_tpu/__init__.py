@@ -1,6 +1,6 @@
-"""cymf-tpu: a TPU-native matrix-factorization framework.
+"""cymf-tpu: a JAX matrix-factorization framework.
 
-Brand-new JAX/XLA/pjit/Pallas implementation with the capabilities of the
+Brand-new JAX/XLA implementation with the capabilities of the
 Cython/OpenMP reference library cymf (see SURVEY.md): BPR, WMF (implicit
 ALS), ExpoMF, RelMF, GloVe, sampled-negative ranking evaluation with IPS
 variants, and MovieLens / Yahoo R3 / text8 dataset loaders.

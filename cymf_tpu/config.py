@@ -2,9 +2,9 @@
 
 The reference (cymf) computes everything in float64 on CPU
 (`/root/reference/cymf/bpr.pyx:87` casts X to float64 and all tables are
-``double``).  TPUs have no native float64; the TPU-native choice is float32
-parameters/accumulation (MXU-friendly, and well within the numerical needs of
-K<=512 matrix factorization).  ``param_dtype`` can be overridden (e.g. to
+``double``).  Here parameters and accumulation are float32 (fast on the
+GPU, and well within the numerical needs of K<=512 matrix
+factorization).  ``param_dtype`` can be overridden (e.g. to
 bfloat16 for bandwidth-bound experiments) via :func:`set_param_dtype`.
 """
 

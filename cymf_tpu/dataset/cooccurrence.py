@@ -1,4 +1,4 @@
-"""Co-occurrence dataset base (TPU-framework counterpart of the role of
+"""Co-occurrence dataset base (JAX-framework counterpart of the role of
 `/root/reference/cymf/dataset/cooccurrence.py`).
 
 Concrete corpora (Text8) populate ``X`` (the sparse co-occurrence matrix)

@@ -1,4 +1,4 @@
-"""Implicit-feedback dataset base (TPU-framework rebuild of the role of
+"""Implicit-feedback dataset base (JAX-framework rebuild of the role of
 `/root/reference/cymf/dataset/implicit.py` — the attribute contract only;
 the helpers are new code).
 
@@ -14,7 +14,6 @@ import os
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 from scipy import sparse
 
 CACHE_DIR_NAME = ".cymf_tpu"
@@ -53,7 +52,7 @@ class ImplicitFeedbackDataset:
         self.dir_path = self.root / dir_name
         self.min_rating = float(min_rating)
 
-    def to_matrix(self, df: pd.DataFrame) -> sparse.lil_matrix:
+    def to_matrix(self, df: "pd.DataFrame") -> sparse.lil_matrix:
         """(user, item, rating) frame -> lil_matrix, built vectorized
         through COO instead of a per-entry Python loop."""
         # duplicate (u, i) pairs: lil assignment keeps the last value, COO
@@ -66,7 +65,7 @@ class ImplicitFeedbackDataset:
             shape=(self.num_user, self.num_item))
         return m.tolil()
 
-    def to_dataframe(self, matrix) -> pd.DataFrame:
+    def to_dataframe(self, matrix) -> "pd.DataFrame":
         """Matrix -> long-form ``(user, item, rating)`` frame.
 
         API parity with the reference's helper
@@ -76,6 +75,8 @@ class ImplicitFeedbackDataset:
         negative.  Built vectorized from a dense view (the reference
         stacks ``matrix.toarray()`` too, so the memory profile matches).
         """
+        import pandas as pd  # only the file-based loaders need pandas
+
         dense = np.asarray(
             matrix.toarray() if sparse.issparse(matrix) else matrix)
         U, I = dense.shape
@@ -86,7 +87,7 @@ class ImplicitFeedbackDataset:
         })
         return df[df["rating"] >= 0]
 
-    def split(self, df: pd.DataFrame):
+    def split(self, df: "pd.DataFrame"):
         """Frame -> ``(user, item, rating[:, None])`` arrays
         (`/root/reference/cymf/dataset/implicit.py:53-54`)."""
         return (df.user.values, df.item.values, df.rating.values[:, None])

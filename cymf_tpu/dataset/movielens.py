@@ -19,9 +19,6 @@ import zipfile
 from pathlib import Path
 from typing import Dict, Optional
 
-import pandas as pd
-from sklearn.model_selection import train_test_split
-
 from .implicit import ImplicitFeedbackDataset
 
 
@@ -40,6 +37,8 @@ class MovieLens(ImplicitFeedbackDataset):
             raise ValueError(
                 "dir_name must be one of 'ml-100k', 'ml-1m', 'ml-10m', "
                 "'ml-20m', 'ml-25m'.")
+
+        from sklearn.model_selection import train_test_split
 
         self._ensure_files(dir_name)
         print("loading movielens...")
@@ -87,7 +86,9 @@ class MovieLens(ImplicitFeedbackDataset):
             if extracted.exists():
                 extracted.rename(self.dir_path)
 
-    def _read_ratings(self, dir_name: str) -> pd.DataFrame:
+    def _read_ratings(self, dir_name: str) -> "pd.DataFrame":
+        import pandas as pd
+
         if dir_name == "ml-100k":
             return pd.read_csv(self.dir_path.joinpath("u.data"), sep="\t",
                                names=("user", "item", "rating", "timestamp"))
@@ -100,7 +101,7 @@ class MovieLens(ImplicitFeedbackDataset):
         df.columns = ("user", "item", "rating", "timestamp")
         return df
 
-    def reset_id(self, column: pd.Series) -> pd.Series:
+    def reset_id(self, column: "pd.Series") -> "pd.Series":
         """Dense id remap (`movielens.py:76-85`): ids are assigned in the
         iteration order of ``set(column)`` — replicated exactly so the
         user/item numbering matches the reference."""

@@ -13,7 +13,6 @@ from typing import Tuple
 
 import numpy as np
 from scipy import sparse
-from sklearn.model_selection import train_test_split
 
 from .implicit import ImplicitFeedbackDataset
 
@@ -39,6 +38,19 @@ def synthetic_interactions(num_user: int, num_item: int, rank: int = 8,
     return sparse.csr_matrix(X)
 
 
+def split_indices(idx: np.ndarray, test_size: float = 0.1,
+                  seed: int = 12345) -> Tuple[np.ndarray, np.ndarray]:
+    """``sklearn.model_selection.train_test_split(idx, test_size=...,
+    random_state=seed)`` without scikit-learn: the same
+    ``RandomState(seed).permutation``, its first ``ceil(test_size * n)``
+    entries the test part, the rest the train part, in permutation
+    order."""
+    n = len(idx)
+    n_test = int(np.ceil(test_size * n))
+    perm = np.random.RandomState(seed).permutation(n)
+    return idx[perm[n_test:]], idx[perm[:n_test]]
+
+
 class SyntheticImplicitDataset(ImplicitFeedbackDataset):
     """Train/valid/test splits over synthetic interactions, with the same
     90/10/10 protocol as the MovieLens loader (`movielens.py:65-66`)."""
@@ -50,8 +62,8 @@ class SyntheticImplicitDataset(ImplicitFeedbackDataset):
         X = synthetic_interactions(num_user, num_item, rank, density, seed)
         coo = X.tocoo()
         idx = np.arange(coo.nnz)
-        tr, te = train_test_split(idx, test_size=0.1, random_state=12345)
-        tr, va = train_test_split(tr, test_size=0.1, random_state=12345)
+        tr, te = split_indices(idx)
+        tr, va = split_indices(tr)
 
         def to_lil(sel):
             m = sparse.coo_matrix(
@@ -75,7 +87,7 @@ def bench_interactions(num_user: int, num_item: int, nnz: int,
     catalog (real ML-20M's top user rated 9,254 of 26,744 movies); a
     user's items are near-distinct (heavy users sample without
     replacement), so rejection masks run at realistic (~0.5%) collision
-    rates.  The round-2 generator (``zipf(1.3) % num_user``) put 25% of
+    rates.  An earlier generator (``zipf(1.3) % num_user``) put 25% of
     all interactions on ONE user with degree 5M >> catalog size — its
     sorted streams had giant single-row runs and ~77% of negative draws
     were rejection-masked, neither of which real data exhibits."""

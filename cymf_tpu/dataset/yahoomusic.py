@@ -16,9 +16,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import pandas as pd
-from sklearn.model_selection import train_test_split
-
 from .implicit import ImplicitFeedbackDataset
 
 _FILES = {
@@ -46,6 +43,8 @@ class YahooMusic(ImplicitFeedbackDataset):
         self.num_user = int(self.df_train.user.max()) + 1
         self.num_item = int(self.df_train.item.max()) + 1
 
+        from sklearn.model_selection import train_test_split
+
         self.df_train, self.df_valid = train_test_split(
             self.df_train, test_size=0.1, random_state=12345)
 
@@ -54,8 +53,10 @@ class YahooMusic(ImplicitFeedbackDataset):
         self.test = self.to_matrix(self.df_test)
         self._finalize()
 
-    def _read(self, fname: str, min_rating: float) -> pd.DataFrame:
+    def _read(self, fname: str, min_rating: float) -> "pd.DataFrame":
         """TSV -> 0-based ids, >= min_rating kept and binarized."""
+        import pandas as pd
+
         df = pd.read_csv(self.dir_path.joinpath(fname), sep="\t",
                          names=["user", "item", "rating"])
         df[["user", "item"]] -= 1

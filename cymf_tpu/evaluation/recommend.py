@@ -5,8 +5,9 @@ inside the sampled-negative evaluator's per-user Python loop
 (`/root/reference/cymf/evaluator.pyx:113`).  This module is the sharded
 full-catalog scorer called for by the north star (BASELINE.json):
 
-* single device: one ``(users_chunk x K) @ (K x items)`` matmul on the MXU
-  per chunk, train-positive exclusion by scatter-masking, ``jax.lax.top_k``.
+* single device: one ``(users_chunk x K) @ (K x items)`` matmul per
+  chunk (float32 at ``precision=HIGHEST``, so no TF32 rounding reorders
+  the top-k), train-positive exclusion by scatter-masking, ``jax.lax.top_k``.
 * multi-device mesh: the catalog axis is **row-sharded** with an explicit
   ``shard_map`` — each device scores its item shard ``(C, K) @ (K, I/n)``,
   takes a LOCAL top-k, and the merge all-gathers only the ``n * k``
@@ -32,7 +33,8 @@ from ..parallel.mesh import ROW_AXIS, current_mesh
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def _topk_chunk(W_chunk, H, excl_idx, excl_valid, *, k: int):
-    scores = jnp.matmul(W_chunk, H.T, preferred_element_type=jnp.float32)
+    scores = jnp.matmul(W_chunk, H.T, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
     C = W_chunk.shape[0]
     cols = jnp.where(excl_valid, excl_idx, H.shape[0])
     mask = jnp.zeros(scores.shape, bool).at[
@@ -58,7 +60,8 @@ def _topk_sharded(mesh_ctx, k: int, num_items: int):
         ipd = H_shard.shape[0]
         C = W_chunk.shape[0]
         scores = jnp.matmul(W_chunk, H_shard.T,
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=jax.lax.Precision.HIGHEST)
         gid0 = p * ipd
         # catalog pad rows (beyond num_items) and excluded items -> -inf
         live = (gid0 + jnp.arange(ipd)) < num_items
@@ -131,8 +134,8 @@ def recommend(W, H, k: int = 10, exclude=None,
         C = end - start
         # vectorized exclusion pads, sized per CHUNK (power of two: a
         # handful of distinct compiled shapes instead of padding every
-        # chunk to the GLOBAL max degree — at ML-20M that was a
-        # (4096, ~9k) upload per chunk; round-4 fix, VERDICT r3 weak #7)
+        # chunk to the GLOBAL max degree — at ML-20M that would be a
+        # (4096, ~9k) upload per chunk)
         if X is not None:
             lo = X.indptr[start:end].astype(np.int64)
             hi = X.indptr[start + 1:end + 1].astype(np.int64)

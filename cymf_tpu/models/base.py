@@ -13,14 +13,51 @@ device mesh (SURVEY.md §2 "Parallelism strategies").
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
 from scipy import sparse
-from tqdm import tqdm
+
+try:
+    from tqdm import tqdm as _tqdm
+except ImportError:  # optional: a plain progress line stands in
+    _tqdm = None
 
 from .. import config
 from ..parallel.mesh import MeshContext, current_mesh, fetch_to_host
+
+
+class _PlainProgress:
+    """tqdm's bar interface, printing one line per update to stderr."""
+
+    def __init__(self, total: int, initial: int = 0, disable: bool = False):
+        self.total, self.n, self.disable, self.desc = (total, initial,
+                                                       disable, "")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set_description(self, desc: str) -> None:
+        self.desc = desc
+
+    def update(self, n: int = 1) -> None:
+        self.n += n
+        if not self.disable:
+            print(f"{self.desc} [{self.n}/{self.total}]", file=sys.stderr,
+                  flush=True)
+
+
+def progress(total: int, initial: int = 0, disable: bool = False,
+             ncols: int = 100):
+    """Epoch progress bar: tqdm when installed, else a plain line."""
+    if _tqdm is None:
+        return _PlainProgress(total, initial, disable)
+    return _tqdm(total=total, leave=True, ncols=ncols, initial=initial,
+                 disable=disable)
 
 
 def as_csr(X) -> sparse.csr_matrix:
@@ -154,6 +191,15 @@ class MFTrainerBase:
         if self.H is None:
             self.H = uniform_init((num_rows_h, K), K)
 
+    def _state_rows(self) -> dict:
+        """Real row count of each ``self._state`` entry (the rest is mesh
+        padding): user-side tables and their optimizer state hold
+        ``num_users`` rows, item-side ones (and ExpoMF's ``mu``)
+        ``num_items``.  Checkpoints record it; resuming checks it."""
+        U, I = self._num_users, self._num_items
+        side = {"W": U, "ow": U, "H": I, "oh": I, "mu": I}
+        return {k: side[k] for k in self._state}
+
     # -- mesh ---------------------------------------------------------------
     @property
     def mesh(self) -> MeshContext:
@@ -196,13 +242,14 @@ class MFTrainerBase:
         thr = Throughput()
         samples_per_epoch = getattr(self, "_samples_per_epoch", 0)
         thr.tick(0)
-        with tqdm(total=num_epochs, leave=True, ncols=ncols,
-                  initial=start_epoch, disable=not verbose) as progress:
+        with progress(num_epochs, initial=start_epoch, disable=not verbose,
+                      ncols=ncols) as bar:
             for epoch in range(start_epoch, num_epochs):
                 epoch_fn(epoch)
                 thr.tick(samples_per_epoch)
                 if ckpt and (epoch + 1) % checkpoint_every == 0:
-                    ckpt.save(checkpoint_path, self._state, epoch)
+                    ckpt.save(checkpoint_path, self._state, epoch,
+                              rows=self._state_rows())
                 if self.valid_evaluator:
                     valid_dcg = self.valid_evaluator.evaluate(
                         self.W, self.H)["DCG@5"]
@@ -211,13 +258,13 @@ class MFTrainerBase:
                     self.valid_dcg = stopper.best_dcg
                 rate = (f", {thr.format()}" if samples_per_epoch
                         and thr.rate else "")
-                progress.set_description(
+                bar.set_description(
                     f"EPOCH={epoch + 1:{len(str(num_epochs))}}"
                     + (f", DCG@5={np.round(valid_dcg, 3)}"
                        if self.valid_evaluator else "")
                     + rate
                     + (desc_extra_fn() if desc_extra_fn else ""))
-                progress.update(1)
+                bar.update(1)
         if ckpt:
             ckpt.wait()
         if self.valid_evaluator and self.early_stopping \

@@ -1,4 +1,4 @@
-"""Exposure Matrix Factorization (Liang et al. 2016) — TPU-native trainer.
+"""Exposure Matrix Factorization (Liang et al. 2016) — JAX trainer.
 
 Behavioural spec from `/root/reference/cymf/expomf.pyx`: EM with
 exposure-weighted ALS.  Per epoch, with epoch-start factors (W0, H0):
@@ -14,9 +14,9 @@ then the symmetric item sweep with Y = the *updated* W but the *epoch-start*
 Exposure; finally mu_i = (a1 + sum_u E_ui - 1) / (a1 + a2 + U - 2) with a
 Beta(1, 1) prior (`expomf.pyx:113-114,142`).
 
-TPU-native redesign: the dense U x I Exposure matrix (`expomf.pyx:111,134`)
+Redesign: the dense U x I Exposure matrix (`expomf.pyx:111,134`)
 is never materialized — each user/item chunk recomputes its E block from
-(W0, H0) (one MXU matmul), folds it straight into the weighted Gramian
+(W0, H0) (one matmul), folds it straight into the weighted Gramian
 ``Y^T diag(E_row) Y`` (a batched einsum — replacing the O(rows * I * K^2)
 scalar triple loop at `expomf.pyx:196-199`), and solves by batched Cholesky.
 Column sums of E for the mu update are accumulated across user chunks.
@@ -39,7 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import config
-from ..ops.als import AlsChunk, build_chunks, get_solver
+from ..ops.als import HIGHEST, AlsChunk, build_chunks, get_solver
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 
@@ -67,7 +67,8 @@ def _expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
     n_pad_rows = E_src.shape[0]
     crows = jnp.clip(rows, 0, n_pad_rows - 1)
     S = jnp.matmul(E_src[crows], E_other.T,
-                   preferred_element_type=jnp.float32)      # [C, Co]
+                   preferred_element_type=jnp.float32,
+                   precision=HIGHEST)                       # [C, Co]
     n = prefactor * jnp.exp(-lam_y * jnp.square(S) / 2.0)
     post = (n + 1e-8) / (n + 1e-8 + mu_term)
     # observed cells -> exposure 1 (expomf.pyx:135-137)
@@ -81,7 +82,8 @@ def _expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
 
     # normal equations: A = ridge + lam_y * Y^T diag(E_row) Y (batched)
     A = ridge_eye[None] + lam_y * jnp.einsum(
-        "ci,ik,il->ckl", E, Y, Y, preferred_element_type=jnp.float32)
+        "ci,ik,il->ckl", E, Y, Y, preferred_element_type=jnp.float32,
+        precision=HIGHEST)
     sub = Y[idx_pad] * valid[..., None].astype(Y.dtype)
     b = lam_y * jnp.sum(sub, axis=1)                        # E=1 at observed
     x = get_solver(solver)(A, b)
@@ -160,13 +162,13 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
                 and __import__("os").path.exists(checkpoint_path):
             from ..utils.checkpoint import load_checkpoint
             self._state, last_epoch, _ = load_checkpoint(
-                checkpoint_path, self._state)
+                checkpoint_path, self._state, rows=self._state_rows())
             start_epoch = last_epoch + 1
             mu = self._state["mu"]
 
         a1 = a2 = 1.0  # Beta(1, 1) prior (expomf.pyx:113-114,142)
-        # Cholesky routing (round 5): resolve CYMF_TPU_ALS_CHOL once so
-        # the explicit form is a static jit key (ops/als.py)
+        # resolve CYMF_TPU_ALS_CHOL once so the explicit form is a static
+        # jit key (ops/als.py)
         from ..ops.als import resolve_chol_solver
         solver_r = resolve_chol_solver(self.solver, self.num_components)
 

@@ -1,4 +1,4 @@
-"""GloVe (Pennington et al. 2014) — TPU-native trainer.
+"""GloVe (Pennington et al. 2014) — JAX trainer.
 
 Behavioural spec from `/root/reference/cymf/glove.pyx` + `model.pyx:145-204`
 + `optimizer.pyx:85-123`: weighted least squares over co-occurrence counts,
@@ -24,7 +24,7 @@ Fixed reference defect (SURVEY.md §7): the context bias is sized by
 ``X.shape[1]`` (the reference sizes it with ``X.shape[0]``,
 `glove.pyx:94` — identical for the square matrices it is used with).
 
-TPU-native redesign: the Hogwild ``prange`` over co-occurrence triples
+Redesign: the Hogwild ``prange`` over co-occurrence triples
 (`glove.pyx:151-153`) becomes a jitted ``lax.scan`` over minibatches with
 segment-sum dedup and sparse scatter updates, sharded over the mesh.
 """
@@ -32,28 +32,45 @@ segment-sum dedup and sparse scatter updates, sharded over the mesh.
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import sparse
-from sklearn import utils as sk_utils
-from tqdm import tqdm
 
 from .. import config
 from ..ops.segment import dedup_rows
 from ..optim import AdaGrad
 from ..parallel.mesh import current_mesh
+from .base import progress
+
+
+def augment_tables(W_central, central_bias, W_context, context_bias):
+    """The fused-bias augmented layout
+
+        Zc = [w | b_central | 1]        Zx = [h | 1 | b_context]
+
+    so ``Zc . Zx = w.h + b_c + b_x``; the gradient masks of the fused
+    epochs (`_glove_epoch`, `parallel/shard_step.py`) keep the constant
+    columns frozen."""
+    V1 = W_central.shape[0]
+    V2 = W_context.shape[0]
+    Zc = np.concatenate(
+        [W_central, np.asarray(central_bias).reshape(V1, 1),
+         np.ones((V1, 1))], axis=1)
+    Zx = np.concatenate(
+        [W_context, np.ones((V2, 1)),
+         np.asarray(context_bias).reshape(V2, 1)], axis=1)
+    return Zc, Zx
 
 
 def _bias_kfold_update(bias, accum, rows, grads, lr, k_steps: int,
                        presorted: bool = False):
     """K consecutive AdaGrad steps with a constant gradient, closed form.
 
-    ``bias``/``accum`` are (V, 1) column vectors: 1D (V,) arrays scatter
-    along TPU *lanes*, which serializes; the column layout makes these
-    row-addressed sublane scatters like the embedding tables (~10 ms/step
-    -> ~1 ms/step at B=131k, measured).
+    ``bias``/``accum`` are (V, 1) column vectors, so these are
+    row-addressed scatters like the embedding tables'.
     """
     drop = bias.shape[0]
     rows, g = dedup_rows(rows, grads[:, None], drop, presorted=presorted)
@@ -88,16 +105,6 @@ def _sharded_glove_kfold_epoch_jit(mesh, lr: float, x_max: float,
     opt = AdaGrad(lr)
     return opt, sharded_glove_kfold_epoch(mesh, opt, x_max, alpha, K,
                                           num_central)
-
-
-@functools.lru_cache(maxsize=16)
-def _sharded_packed_glove_jit(mesh, lr: float, K: int, rw: int, rh: int,
-                              wrows_w: int, wrows_h: int, interpret: bool):
-    """Cached jitted shard_map PACKED GloVe epoch per (mesh, config) —
-    repeated fits must not pay a fresh remote compile."""
-    from ..parallel.shard_step import sharded_packed_glove_epoch
-    return sharded_packed_glove_epoch(mesh, lr, K, rw, rh, wrows_w,
-                                      wrows_h, interpret)
 
 
 @functools.lru_cache(maxsize=64)
@@ -190,8 +197,7 @@ class GloVe:
     def __init__(self, num_components: int = 50, learning_rate: float = 0.01,
                  alpha: float = 0.75, x_max: float = 10.0,
                  batch_size: int = 4096, update_mode: str = "auto",
-                 bias_mode: str = "fused", engine: str = "xla",
-                 packed: str = "auto"):
+                 bias_mode: str = "fused"):
         self.num_components = int(num_components)
         self.learning_rate = float(learning_rate)
         self.alpha = float(alpha)
@@ -203,38 +209,9 @@ class GloVe:
         if bias_mode not in ("fused", "kfold"):
             raise ValueError("bias_mode must be fused|kfold")
         self.bias_mode = bias_mode
-        if engine not in ("xla", "pallas"):
-            raise ValueError("engine must be 'xla' or 'pallas'")
-        self.engine = engine
-        if packed not in ("auto", "on", "off"):
-            raise ValueError("packed must be auto|on|off")
-        self.packed = packed
         self.W = None
         self.bias = None
-
-    def _packed_engine(self, n_samples: int) -> bool:
-        """Select the packed fused engine (`ops/glove_epoch.py`):
-        fused-bias single-device fits with a packable augmented payload.
-        ``packed='auto'`` picks it on a real TPU backend;
-        ``packed='on'`` forces it on any backend.  On a multi-device
-        mesh the engine runs its explicit shard_map form
-        (`parallel/shard_step.py::sharded_packed_glove_epoch`) — the
-        stream is identical, so fits are mesh-size-invariant up to
-        float summation order."""
-        from ..ops.glove_epoch import supports_packed_glove
-        if self.packed == "off" or self.engine != "xla" \
-                or self.bias_mode != "fused" \
-                or not supports_packed_glove(self.num_components):
-            if self.packed == "on":
-                raise ValueError(
-                    "packed='on' requires engine='xla', bias_mode='fused' "
-                    "and num_components <= 124 (the augmented payload K+2 "
-                    "plus two decoration lanes must lane-pack)")
-            return False
-        mesh = current_mesh()
-        if self.packed == "on":
-            return True  # multi-device meshes run the sharded form
-        return jax.default_backend() == "tpu" and n_samples >= 4096
+        self._state = None  # device tables + AdaGrad state during fit
 
     def fit(self, X, num_epochs: int, num_threads: int = 1,
             verbose: bool = False, checkpoint_path=None,
@@ -257,17 +234,15 @@ class GloVe:
         context_bias = np.random.uniform(-0.5, 0.5, (V2,)) / K
 
         coo = X.tocoo()
-        central, context, counts = sk_utils.shuffle(
-            coo.row.astype(np.int32), coo.col.astype(np.int32),
-            coo.data.astype(np.float64))
+        # same global-RandomState stream as sklearn.utils.shuffle
+        perm = np.random.permutation(coo.nnz)
+        central = coo.row.astype(np.int32)[perm]
+        context = coo.col.astype(np.int32)[perm]
+        counts = coo.data.astype(np.float64)[perm]
 
         N = len(central)
         mesh = current_mesh()
-        use_packed = self._packed_engine(N)
-        if use_packed:
-            B = -(-min(self.batch_size, max(N, 1)) // 1024) * 1024
-        else:
-            B = mesh.pad_rows(min(self.batch_size, max(N, mesh.num_devices)))
+        B = mesh.pad_rows(min(self.batch_size, max(N, mesh.num_devices)))
         S = max(1, -(-N // B))
         pad = S * B - N
         if pad:
@@ -275,17 +250,6 @@ class GloVe:
                 [central, np.full(pad, np.int32(2**31 - 1))])
             context = np.concatenate([context, np.zeros(pad, np.int32)])
             counts = np.concatenate([counts, np.ones(pad)])
-        if self.engine == "pallas":
-            if checkpoint_path is not None:
-                raise NotImplementedError(
-                    "checkpointing is only supported with engine='xla'")
-            if self.bias_mode != "fused":
-                raise NotImplementedError(
-                    "engine='pallas' implements bias_mode='fused' only; "
-                    "use engine='xla' for bias_mode='kfold'")
-            return self._fit_pallas(W_central, central_bias, W_context,
-                                    context_bias, central, context, counts,
-                                    N, num_epochs, verbose, V1, V2)
         # per-batch sort by central word (sorted-scatter fast path; order
         # within a synchronous batch is semantically irrelevant; padding
         # sentinels sort last and are masked by the in-data check)
@@ -296,14 +260,6 @@ class GloVe:
         c2 = np.take_along_axis(c2, order, axis=1)
         x2 = np.take_along_axis(x2, order, axis=1)
         n2 = np.take_along_axis(n2, order, axis=1)
-        if use_packed:
-            return self._fit_packed_glove(
-                c2, x2, n2, W_central, central_bias, W_context,
-                context_bias, N, num_epochs, verbose, V1, V2,
-                checkpoint_path, checkpoint_every, resume)
-        central = c2.reshape(-1)
-        context = x2.reshape(-1)
-        counts = n2.reshape(-1)
 
         dtype = config.param_dtype()
 
@@ -318,7 +274,6 @@ class GloVe:
             return jax.device_put(jnp.asarray(T, dtype), mesh.table())
 
         if self.bias_mode == "fused":
-            from ..ops.glove_epoch import augment_tables
             Wc_np, Wx_np = augment_tables(W_central, central_bias,
                                           W_context, context_bias)
             Wc, Wx = table(Wc_np), table(Wx_np)
@@ -326,10 +281,9 @@ class GloVe:
         else:
             Wc, Wx = table(W_central), table(W_context)
             bc, bx = table(central_bias), table(context_bias)
-        c_steps = jax.device_put(central.reshape(S, B), mesh.batch2d())
-        x_steps = jax.device_put(context.reshape(S, B), mesh.batch2d())
-        n_counts = jax.device_put(
-            jnp.asarray(counts.reshape(S, B), dtype), mesh.batch2d())
+        c_steps = jax.device_put(c2, mesh.batch2d())
+        x_steps = jax.device_put(x2, mesh.batch2d())
+        n_counts = jax.device_put(jnp.asarray(n2, dtype), mesh.batch2d())
 
         from .bpr import choose_update_mode
         mode = choose_update_mode(self.update_mode, 2 * B,
@@ -352,201 +306,63 @@ class GloVe:
             opt, epoch_jit = _glove_epoch_jit(
                 self.learning_rate, self.x_max, self.alpha, K, V1, mode,
                 self.bias_mode)
-        ow, oh = opt.init(Wc), opt.init(Wx)
-        abc = jnp.ones_like(bc)  # accumulators init ones (optimizer.pyx:96-99)
-        abx = jnp.ones_like(bx)
-
-        state = {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx, "ow": ow,
-                 "oh": oh, "abc": abc, "abx": abx}
+        # accumulators init ones (optimizer.pyx:96-99)
+        names = ("Wc", "Wx", "bc", "bx", "ow", "oh", "abc", "abx")
+        self._state = dict(zip(names, (
+            Wc, Wx, bc, bx, opt.init(Wc), opt.init(Wx), jnp.ones_like(bc),
+            jnp.ones_like(bx))))
+        # real rows of each state entry (the rest is mesh padding); the
+        # fused bias mode keeps one unused bias row per side
+        b1, b2 = (1, 1) if self.bias_mode == "fused" else (V1, V2)
+        rows = dict(zip(names, (V1, V2, b1, b2, V1, V2, b1, b2)))
         start_epoch = 0
         if resume and checkpoint_path is not None \
-                and __import__("os").path.exists(checkpoint_path):
+                and os.path.exists(checkpoint_path):
             from ..utils.checkpoint import load_checkpoint
-            state, last_epoch, _ = load_checkpoint(checkpoint_path, state)
-            Wc, Wx, bc, bx = state["Wc"], state["Wx"], state["bc"], state["bx"]
-            ow, oh, abc, abx = (state["ow"], state["oh"], state["abc"],
-                                state["abx"])
+            self._state, last_epoch, _ = load_checkpoint(
+                checkpoint_path, self._state, rows=rows)
             start_epoch = last_epoch + 1
 
         loss = None
         from ..utils.checkpoint import AsyncCheckpointer
         ckpt = AsyncCheckpointer() if checkpoint_path else None
-        with tqdm(total=num_epochs, leave=True, ncols=100,
-                  initial=start_epoch, disable=not verbose) as progress:
+        with progress(num_epochs, initial=start_epoch,
+                      disable=not verbose) as bar:
             for it in range(start_epoch, num_epochs):
-                Wc, Wx, bc, bx, ow, oh, abc, abx, loss = epoch_jit(
-                    Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
-                    n_counts, jnp.asarray(N, jnp.int32))
-                progress.set_description(
-                    f"ITER={it + 1:{len(str(num_epochs))}}, "
-                    f"LOSS: {float(jax.device_get(loss)):.4f}")
-                progress.update(1)
+                out = epoch_jit(*(self._state[k] for k in names), c_steps,
+                                x_steps, n_counts, jnp.asarray(N, jnp.int32))
+                self._state = dict(zip(names, out[:8]))
+                loss = out[8]
+                if verbose:
+                    bar.set_description(
+                        f"ITER={it + 1:{len(str(num_epochs))}}, "
+                        f"LOSS: {float(jax.device_get(loss)):.4f}")
+                bar.update(1)
                 if ckpt and (it + 1) % checkpoint_every == 0:
-                    state = {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx,
-                             "ow": ow, "oh": oh, "abc": abc, "abx": abx}
-                    ckpt.save(checkpoint_path, state, it)
+                    ckpt.save(checkpoint_path, self._state, it, rows=rows)
         if ckpt:
             ckpt.wait()
 
         self.last_loss = float(jax.device_get(loss)) if loss is not None \
             else None
-        if self.bias_mode == "fused":
-            self.W_central = np.asarray(Wc[:V1, :K], np.float64)
-            self.W_context = np.asarray(Wx[:V2, :K], np.float64)
-            self.bias = np.asarray(Wc[:V1, K], np.float64)
-            self.context_bias = np.asarray(Wx[:V2, K + 1], np.float64)
-        else:
-            self.W_central = np.asarray(Wc[:V1], np.float64)
-            self.W_context = np.asarray(Wx[:V2], np.float64)
-            self.bias = np.asarray(bc[:V1, 0], np.float64)
-            self.context_bias = np.asarray(bx[:V2, 0], np.float64)
-        self.W = (self.W_central + self.W_context) / 2.0  # glove.pyx:112
+        self._finalize_fit(V1, V2)
 
-    def _fit_packed_glove(self, c2, x2, n2, W_central, central_bias,
-                          W_context, context_bias, N, num_epochs, verbose,
-                          V1, V2, checkpoint_path=None, checkpoint_every=1,
-                          resume=False):
-        """Packed fused engine (`ops/glove_epoch.py`): lane-packed
-        augmented central table, logical augmented context table, the
-        fused sample kernel and scatter-free windowed MXU accumulation —
-        the BPR fast path applied to GloVe.  All streams are static per
-        fit (no negative sampling), so epochs replay one jitted scan with
-        zero per-epoch host work.  Fused-bias AdaGrad semantics identical
-        to the XLA epoch (`_glove_epoch`)."""
-        from ..ops import packed as pk
-        from ..ops.glove_epoch import (packed_glove_epoch,
-                                       prep_glove_shard_static,
-                                       prep_glove_static)
-
-        mesh = current_mesh()
-        n = mesh.num_devices
+    def _finalize_fit(self, V1: int, V2: int) -> None:
+        """Pull the learned tables to host and drop the device state."""
         K = self.num_components
-        Kp = K + 2
-        wrows_w, wrows_h = 256, 256
-        # sharded: every shard's row range is a whole number of windows
-        rw = pk.packed_rows(V1, Kp, multiple=wrows_w * n)
-        rh = pk.logical_rows(V2, multiple=wrows_h)
-        interpret = jax.default_backend() != "tpu"
-
-        if n > 1:
-            from jax.sharding import NamedSharding
-            from jax.sharding import PartitionSpec as P
-
-            from ..parallel.mesh import ROW_AXIS
-            table_sh = NamedSharding(mesh.mesh, P(ROW_AXIS, None))
-            stream_sh = NamedSharding(mesh.mesh, P(ROW_AXIS))
-            put_w = lambda a: jax.device_put(np.asarray(a), table_sh)
-            put_h = lambda a: jax.device_put(np.asarray(a),
-                                             mesh.replicated())
-            (c_l, x_l, m_l, f_l, l_l, winw_l, sx_l, rowsx_l,
-             winx_l, _) = prep_glove_shard_static(
-                c2, x2, n2, V1, K, rw, rh, wrows_w, wrows_h, n,
-                self.x_max, self.alpha)
-            dev = [jax.device_put(np.asarray(a), stream_sh) for a in
-                   (c_l, x_l, m_l, f_l, l_l, sx_l, rowsx_l, winx_l,
-                    winw_l)]
-            epoch_fn = _sharded_packed_glove_jit(
-                mesh, self.learning_rate, K, rw, rh, wrows_w, wrows_h,
-                interpret)
+        st = {k: np.asarray(v) for k, v in self._state.items()
+              if k in ("Wc", "Wx", "bc", "bx")}
+        self._state = None
+        if self.bias_mode == "fused":
+            self.W_central = st["Wc"][:V1, :K].astype(np.float64)
+            self.W_context = st["Wx"][:V2, :K].astype(np.float64)
+            self.bias = st["Wc"][:V1, K].astype(np.float64)
+            self.context_bias = st["Wx"][:V2, K + 1].astype(np.float64)
         else:
-            put_w = put_h = jnp.asarray
-            m2, f2, l2, winw, sx, rowsx, winx = prep_glove_static(
-                c2, x2, n2, V1, K, rw, rh, wrows_w, wrows_h, self.x_max,
-                self.alpha)
-            dev = [jnp.asarray(a) for a in
-                   (c2, x2, m2, f2, l2, sx, rowsx, winx, winw)]
-
-            def epoch_fn(Zc, Zx, oc, ox, *args):
-                return packed_glove_epoch(
-                    Zc, Zx, oc, ox, *args, lr=self.learning_rate, K=K,
-                    rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h,
-                    interpret=interpret)
-
-        from ..ops.glove_epoch import augment_tables
-        Zc_np, Zx_np = augment_tables(W_central, central_bias,
-                                      W_context, context_bias)
-        Zc = put_w(pk.pack_array(Zc_np.astype(np.float32), Kp,
-                                 multiple=wrows_w * n))
-        Zx = put_h(pk.pack_logical(Zx_np.astype(np.float32), Kp,
-                                   multiple=wrows_h))
-        from ..ops.packed_epoch import PackedAdaGrad
-        opt = PackedAdaGrad(self.learning_rate)
-        oc, ox = opt.init(Zc), opt.init(Zx)
-        n_valid = jnp.asarray(N, jnp.int32)
-
-        def fused_state():
-            # the XLA fused engine's checkpoint schema at single-device
-            # (= logical) shapes — cross-engine resume works both ways.
-            # bc/bx/abc/abx are the fused mode's unused placeholders.
-            return {"Wc": pk.unpack_array(np.asarray(Zc), V1, Kp),
-                    "Wx": np.asarray(Zx)[:V2, :Kp],
-                    "bc": np.zeros((1, 1), np.float32),
-                    "bx": np.zeros((1, 1), np.float32),
-                    "ow": {"accum": pk.unpack_array(
-                        np.asarray(oc["accum"]), V1, Kp)},
-                    "oh": {"accum": np.asarray(ox["accum"])[:V2, :Kp]},
-                    "abc": np.ones((1, 1), np.float32),
-                    "abx": np.ones((1, 1), np.float32)}
-
-        start_epoch = 0
-        if resume and checkpoint_path is not None                 and __import__("os").path.exists(checkpoint_path):
-            from ..utils.checkpoint import load_checkpoint
-            st, last_epoch, _ = load_checkpoint(checkpoint_path,
-                                                fused_state())
-            start_epoch = last_epoch + 1
-
-            def repack_w(a):  # logical (V1, Kp) -> packed, ones filler
-                p = pk.pack_array(np.asarray(a), Kp,
-                                  multiple=wrows_w * n)
-                return np.where(pk.pack_array(
-                    np.ones((V1, Kp), np.float32), Kp,
-                    multiple=wrows_w * n) > 0, p, 1.0)
-
-            def repack_h(a):  # logical (V2, Kp) -> (rh, 128), ones filler
-                p = pk.pack_logical(np.asarray(a), Kp, multiple=wrows_h)
-                return np.where(pk.pack_logical(
-                    np.ones((V2, Kp), np.float32), Kp,
-                    multiple=wrows_h) > 0, p, 1.0)
-
-            Zc = put_w(pk.pack_array(
-                np.asarray(st["Wc"]).astype(np.float32), Kp,
-                multiple=wrows_w * n))
-            Zx = put_h(pk.pack_logical(
-                np.asarray(st["Wx"]).astype(np.float32), Kp,
-                multiple=wrows_h))
-            # off-payload accumulator positions must be ONES (the
-            # initializer): a zero accum with zero gradient is
-            # 0 * rsqrt(0) = NaN on lanes the kernels never read but
-            # the tables would still carry
-            oc = {"accum": put_w(repack_w(st["ow"]["accum"]))}
-            ox = {"accum": put_h(repack_h(st["oh"]["accum"]))}
-
-        from ..utils.checkpoint import AsyncCheckpointer
-        ckpt = AsyncCheckpointer() if checkpoint_path else None
-
-        loss = None
-        with tqdm(total=num_epochs, leave=True, ncols=100,
-                  initial=start_epoch, disable=not verbose) as progress:
-            for it in range(start_epoch, num_epochs):
-                Zc, Zx, oc, ox, loss = epoch_fn(
-                    Zc, Zx, oc, ox, *dev, n_valid)
-                progress.set_description(
-                    f"ITER={it + 1:{len(str(num_epochs))}}, "
-                    f"LOSS: {float(jax.device_get(loss)):.4f}")
-                progress.update(1)
-                if ckpt and (it + 1) % checkpoint_every == 0:
-                    ckpt.save(checkpoint_path, fused_state(), it)
-        if ckpt:
-            ckpt.wait()
-
-        self.last_loss = float(jax.device_get(loss)) if loss is not None \
-            else None
-        Zc_log = pk.unpack_array(np.asarray(Zc), V1, Kp)
-        Zx_log = np.asarray(Zx)[:V2, :Kp]
-        self.W_central = Zc_log[:, :K].astype(np.float64)
-        self.bias = Zc_log[:, K].astype(np.float64)
-        self.W_context = Zx_log[:, :K].astype(np.float64)
-        self.context_bias = Zx_log[:, K + 1].astype(np.float64)
+            self.W_central = st["Wc"][:V1].astype(np.float64)
+            self.W_context = st["Wx"][:V2].astype(np.float64)
+            self.bias = st["bc"][:V1, 0].astype(np.float64)
+            self.context_bias = st["bx"][:V2, 0].astype(np.float64)
         self.W = (self.W_central + self.W_context) / 2.0  # glove.pyx:112
 
     def save_word2vec_format(self, path, index2word):
@@ -558,70 +374,3 @@ class GloVe:
             for i in range(self.W.shape[0]):
                 f.write(f"{index2word[i]} "
                         + " ".join(map(str, self.W[i])) + "\n")
-
-    def _fit_pallas(self, W_central, central_bias, W_context, context_bias,
-                    central, context, counts, N, num_epochs, verbose,
-                    V1, V2, chunk: int = 4096, group: int = 8):
-        """Sequential per-triple training via the VMEM-resident Pallas
-        kernel (`cymf_tpu.ops.pallas_engine.glove_pallas_epoch`);
-        fused-bias AdaGrad only."""
-        from ..ops.pallas_engine import (fits_vmem, glove_pallas_epoch,
-                                        pack_table, unpack_table)
-        K = self.num_components
-        if K + 2 > 126 or not fits_vmem(V1 + V2, "adagrad"):
-            raise ValueError(
-                "vocab/table size exceeds the VMEM budget; use "
-                "engine='xla'")
-
-        Np = len(central)  # already padded to S*B by fit; re-chunk
-        chunk = max(group, (min(chunk, Np) // group) * group)
-        S = max(1, -(-Np // chunk))
-        pad2 = S * chunk - Np
-        sent = np.int32(2**31 - 1)
-        central = np.concatenate([central, np.full(pad2, sent)])
-        context = np.concatenate([context, np.zeros(pad2, np.int32)])
-        counts = np.concatenate([counts, np.ones(pad2)])
-        keep = (central != sent) & (central < V1) \
-            | np.zeros(len(central), bool)
-        # original fit() padding used the sentinel too; mask on it
-        keep &= np.arange(len(central)) < min(N, len(central))
-
-        f = np.minimum((counts / self.x_max) ** self.alpha, 1.0)
-        logcnt = np.log(np.maximum(counts, 1e-30))
-
-        from ..ops.glove_epoch import augment_tables
-        Wc_aug, Wx_aug = augment_tables(W_central, central_bias,
-                                        W_context, context_bias)
-        Wp = pack_table(Wc_aug.astype(np.float32), "adagrad")
-        Xp = pack_table(Wx_aug.astype(np.float32), "adagrad")
-
-        import jax
-        interpret = jax.default_backend() != "tpu"
-        sh = (S, 1, chunk)
-        c_d = jnp.asarray(np.where(keep, central, 0).astype(np.int32)
-                          .reshape(sh))
-        x_d = jnp.asarray(context.astype(np.int32).reshape(sh))
-        f_d = jnp.asarray(f.astype(np.float32).reshape(sh))
-        lc_d = jnp.asarray(logcnt.astype(np.float32).reshape(sh))
-        m_d = jnp.asarray(keep.astype(np.int32).reshape(sh))
-
-        loss = None
-        with tqdm(total=num_epochs, leave=True, ncols=100,
-                  disable=not verbose) as progress:
-            for it in range(num_epochs):
-                Wp, Xp, loss = glove_pallas_epoch(
-                    Wp, Xp, c_d, x_d, f_d, lc_d, m_d,
-                    lr=self.learning_rate, k_dim=K, interpret=interpret,
-                    group=group)
-                progress.set_description(
-                    f"ITER={it + 1:{len(str(num_epochs))}}, "
-                    f"LOSS: {float(jax.device_get(loss)):.4f}")
-                progress.update(1)
-
-        self.last_loss = float(jax.device_get(loss)) if loss is not None \
-            else None
-        self.W_central = np.asarray(Wp[:V1, :K], np.float64)
-        self.W_context = np.asarray(Xp[:V2, :K], np.float64)
-        self.bias = np.asarray(Wp[:V1, K], np.float64)
-        self.context_bias = np.asarray(Xp[:V2, K + 1], np.float64)
-        self.W = (self.W_central + self.W_context) / 2.0

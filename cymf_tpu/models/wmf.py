@@ -10,9 +10,9 @@ positive set P(r) over the other-side table Y:
 
 with confidence weight ``c`` (default 10, `wmf.pyx:46`).
 
-TPU-native redesign: the per-row OpenMP loop with per-thread malloc + LAPACK
+Redesign: the per-row OpenMP loop with per-thread malloc + LAPACK
 ``dgesv`` (`wmf.pyx:150-174`) becomes degree-bucketed *batched* solves — the
-Gramian is one MXU matmul (psum-reduced across the mesh when Y is
+Gramian is one matmul (psum-reduced across the mesh when Y is
 row-sharded), rank-deg corrections are one batched einsum per chunk, and the
 K x K systems are solved by batched Cholesky (LU optional, matching dgesv).
 The reference's malloc leak on empty rows (`wmf.pyx:151-156`) has no
@@ -21,14 +21,15 @@ analogue here.
 
 from __future__ import annotations
 
+import os
 from typing import List
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .. import config
-from ..ops.als import AlsChunk, build_chunks, wmf_chunk_solve
+from ..ops.als import (AlsChunk, build_chunks, gramian, resolve_chol_solver,
+                       wmf_chunk_solve, wmf_chunk_solve_woodbury)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 
@@ -67,10 +68,10 @@ class WMF(MFTrainerBase, PersistenceMixin):
         self._state = {"W": Wd, "H": Hd}
         start_epoch = 0
         if resume and checkpoint_path is not None \
-                and __import__("os").path.exists(checkpoint_path):
+                and os.path.exists(checkpoint_path):
             from ..utils.checkpoint import load_checkpoint
             self._state, last_epoch, _ = load_checkpoint(
-                checkpoint_path, self._state)
+                checkpoint_path, self._state, rows=self._state_rows())
             start_epoch = last_epoch + 1
 
         Xt = X.T.tocsr()
@@ -86,38 +87,25 @@ class WMF(MFTrainerBase, PersistenceMixin):
         wd = self.weight_decay
         weight = jnp.asarray(self.weight, config.param_dtype())
 
-        # Woodbury routing (round 5, verdict #4): at K >= 128 the
-        # batched K^3 Cholesky dominates the chunk solve (measured ~180
-        # ms per 2048-row chunk at K=256 — docs/ROOFLINE.md ALS
-        # section) and the Woodbury form replaces it with a P^3 one
-        # (`ops/als.py::wmf_chunk_solve_woodbury`), measured 1.73x on
-        # the ML-20M d=256 epoch.  auto: route small-P chunks there when
-        # K >= 128 (at K=64 the Cholesky is cheap and Woodbury's extra
-        # matmuls LOSE — bench wmf measured 2.15M vs 3.88M int/s),
+        # Woodbury routing (`ops/als.py::wmf_chunk_solve_woodbury`):
+        # auto routes chunks whose degree pad P is small next to K to the
+        # P^3 Woodbury solve instead of the K^3 Cholesky, when K >= 128,
         # weight > 1, and weight_decay >= 1e-3 (the explicit f32 A0
-        # inverse loses ~cond*eps digits; cond(A0) <= ~||YtY||/wd).
-        # The cap depends on the Cholesky form (late round 5, measured
-        # per-shape at ML-20M d=256 — docs/measurements/r5/
-        # als_roofline_blocked.log): against the 2.5x-faster BLOCKED
-        # standard solve Woodbury only wins at P <= K/4 (47.7 vs 100.2
-        # ms at P=64; ties at P=128; 2x SLOWER at P=256), while against
-        # the XLA expander it wins through P <= K.
-        wb_mode = __import__("os").environ.get(
-            "CYMF_TPU_ALS_WOODBURY", "auto")
+        # inverse loses ~cond*eps digits; cond(A0) <= ~||YtY||/wd).  The
+        # cap is P <= K/4 against the blocked Cholesky form and P <= K
+        # against the XLA one.
+        wb_mode = os.environ.get("CYMF_TPU_ALS_WOODBURY", "auto")
         if wb_mode not in ("auto", "off", "on"):
             raise ValueError("CYMF_TPU_ALS_WOODBURY must be auto|off|on")
         if wb_mode == "on" and self.weight <= 1.0:
             raise ValueError(
                 "CYMF_TPU_ALS_WOODBURY=on requires weight > 1 (the "
                 "Woodbury capacitance divides by weight - 1)")
-        # Cholesky routing (round 5): resolve the CYMF_TPU_ALS_CHOL knob
-        # ONCE here so the explicit solver name is a jit cache key
-        # (`ops/als.py::resolve_chol_solver`)
-        from ..ops.als import resolve_chol_solver
+        # resolve the CYMF_TPU_ALS_CHOL knob ONCE here so the explicit
+        # solver name is a jit cache key (`ops/als.py::resolve_chol_solver`)
         solver_r = resolve_chol_solver(self.solver, self.num_components)
         wb_auto_cap = (self.num_components // 4
-                       if solver_r.startswith(("cholesky_blocked",
-                                               "cholesky_pallas"))
+                       if solver_r.startswith("cholesky_blocked")
                        else self.num_components)
         wb_max_p = (0 if wb_mode == "off" or self.weight <= 1.0
                     else (1 << 30) if wb_mode == "on"
@@ -150,14 +138,12 @@ class WMF(MFTrainerBase, PersistenceMixin):
                     T = fn(Y, T, ch.rows, ch.idx_pad, ch.valid)
                 self._state[target_key] = T
         else:
-            from ..ops.als import wmf_chunk_solve_woodbury
-
             def half_sweep(target_key: str, source_key: str,
                            chunks: List[AlsChunk]):
                 Y = self._state[source_key]
-                A0 = (jnp.matmul(Y.T, Y,
-                                 preferred_element_type=jnp.float32)
-                      + wd * eye)
+                A0 = gramian(Y) + wd * eye
+                # LU factorization + triangular solves: no matmul, so no
+                # TF32 path
                 A0i = jnp.linalg.inv(A0) if any(
                     c.idx_pad.shape[1] <= wb_max_p for c in chunks) \
                     else None

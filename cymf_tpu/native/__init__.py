@@ -1,7 +1,7 @@
 """Native (C++) host-side components.
 
 The reference's native layer is its Cython/OpenMP compute kernels; in the
-TPU-native design the compute path is XLA/Pallas, and the native layer covers
+JAX design the compute path is XLA, and the native layer covers
 the host-side runtime instead — currently the co-occurrence builder
 (`_native.so`, built from ``_native.cpp`` via ``python setup.py build_ext``
 or ``make native``).  Pure-python fallbacks exist for every entry point, so

@@ -22,7 +22,6 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
-#include <random>
 #include <unordered_map>
 #include <vector>
 
@@ -99,809 +98,9 @@ static PyObject* cooccurrence(PyObject* /*self*/, PyObject* args) {
   return Py_BuildValue("(NN)", keys_bytes, vals_bytes);
 }
 
-// bpr_prep_epoch_v2: the fused packed BPR engine's per-epoch host pipeline
-// (negative draws, positive-set rejection, j-side sort + windows) as one
-// OpenMP-parallel pass.  Mirrors ops/packed_epoch.prep_epoch (the numpy
-// fallback); the sort is a counting sort over the rh physical rows (O(B)
-// per step, stable), and window ranges fall out of its prefix sums.  The
-// i-side prep is per-fit (batch composition is fixed across epochs) and
-// stays in numpy.
-//
-//   bpr_prep_epoch_v2(u2 int32[S*B], pos_keys int64[nnz],
-//                     S, B, U, I, slots, rh, wrows, tile, seed)
-//     -> (j2, mask_f32, sj, rowsj, winj) raw buffers
-//
-// RNG is a per-step SplitMix64-scrambled mt19937_64 — a different (but
-// equally uniform) stream than the numpy fallback; both are deterministic
-// per (seed, step).
-static PyObject* bpr_prep_epoch_v2(PyObject*, PyObject* args) {
-  Py_buffer u_buf{}, keys_buf{};
-  int64_t S, B, U, I, slots, rh, wrows, tile, seed;
-  if (!PyArg_ParseTuple(args, "y*y*LLLLLLLLL", &u_buf, &keys_buf,
-                        &S, &B, &U, &I, &slots, &rh, &wrows, &tile, &seed)) {
-    return nullptr;
-  }
-  BufferGuard ug{u_buf}, kg{keys_buf};
-  // Validate before the nogil/OpenMP region: malformed sizes would
-  // otherwise read out of bounds, and I <= 0 makes the uniform
-  // distribution's range undefined behavior.
-  if (S <= 0 || B <= 0 || U <= 0 || I <= 0 || slots <= 0 || wrows <= 0 ||
-      tile <= 0 || rh <= 0 || rh % wrows != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v2: dimensions must be positive and "
-                    "rh a multiple of wrows");
-    return nullptr;
-  }
-  if ((I + slots - 1) / slots > rh) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v2: rh must cover ceil(I/slots) "
-                    "physical rows");
-    return nullptr;
-  }
-  if (u_buf.len != S * B * static_cast<int64_t>(sizeof(int32_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v2: u2 buffer length != S*B int32");
-    return nullptr;
-  }
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v2: pos_keys must be int64-sized");
-    return nullptr;
-  }
-  const int32_t* u2 = static_cast<const int32_t*>(u_buf.buf);
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-
-  const int64_t nw = rh / wrows;
-  PyObject* j_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* m_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* p_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* r_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* w_bytes = PyBytes_FromStringAndSize(nullptr, S * 2 * nw * 4);
-  if (!j_bytes || !m_bytes || !p_bytes || !r_bytes || !w_bytes) {
-    Py_XDECREF(j_bytes); Py_XDECREF(m_bytes); Py_XDECREF(p_bytes);
-    Py_XDECREF(r_bytes); Py_XDECREF(w_bytes);
-    return nullptr;
-  }
-  int32_t* j2 = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(j_bytes));
-  float* mask = reinterpret_cast<float*>(PyBytes_AS_STRING(m_bytes));
-  int32_t* sj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(p_bytes));
-  int32_t* rowsj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(r_bytes));
-  int32_t* winj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(w_bytes));
-
-  Py_BEGIN_ALLOW_THREADS;
-#ifdef _OPENMP
-#pragma omp parallel
-#endif
-  {
-    std::vector<int64_t> counts(rh + 1);
-#ifdef _OPENMP
-#pragma omp for schedule(dynamic)
-#endif
-    for (int64_t t = 0; t < S; ++t) {
-      const int32_t* u = u2 + t * B;
-      int32_t* j = j2 + t * B;
-      float* mf = mask + t * B;
-      // SplitMix64-scrambled per-step seed -> mt19937_64
-      uint64_t z = static_cast<uint64_t>(seed) + 0x9e3779b97f4a7c15ULL *
-                   (static_cast<uint64_t>(t) + 1);
-      z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
-      z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
-      std::mt19937_64 gen(z ^ (z >> 31));
-      std::uniform_int_distribution<int64_t> dist(0, I - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t draw = dist(gen);
-        j[b] = static_cast<int32_t>(draw);
-        bool live = static_cast<int64_t>(u[b]) < U;
-        if (live && nkeys > 0) {
-          const int64_t key = static_cast<int64_t>(u[b]) * I + draw;
-          const int64_t* lo =
-              std::lower_bound(pos_keys, pos_keys + nkeys, key);
-          if (lo != pos_keys + nkeys && *lo == key) live = false;
-        }
-        mf[b] = live ? 1.0f : 0.0f;
-      }
-      // counting sort of j by physical row
-      std::fill(counts.begin(), counts.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++counts[j[b] / slots + 1];
-      for (int64_t r = 0; r < rh; ++r) counts[r + 1] += counts[r];
-      // window ranges from the prefix sums (128-aligned starts — the
-      // lane-major fold granularity; windows whose chunk grid would
-      // overrun B re-anchor so it ends exactly at B, mirroring
-      // cymf_tpu.ops.sorted_accum.window_ranges(align=128))
-      int32_t* ws = winj + t * 2 * nw;
-      for (int64_t w = 0; w < nw; ++w) {
-        const int64_t lo = counts[w * wrows];
-        const int64_t hi =
-            (w + 1) * wrows <= rh ? counts[(w + 1) * wrows] : B;
-        int64_t astart = (lo / 128) * 128;
-        const int64_t nch = (hi - astart + tile - 1) / tile;
-        if (astart + nch * tile > B) {
-          int64_t need = (B - lo + tile - 1) / tile;
-          if (nch > need) need = nch;
-          astart = B - need * tile;
-        }
-        ws[w] = static_cast<int32_t>(astart);
-        ws[nw + w] = static_cast<int32_t>(hi - astart);
-      }
-      int32_t* pj = sj + t * B;
-      int32_t* rj = rowsj + t * B;
-      std::vector<int64_t> cursor(counts.begin(), counts.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[j[b] / slots]++;
-        pj[pos] = static_cast<int32_t>(b);
-        rj[pos] = j[b] / slots;
-      }
-    }
-  }
-  Py_END_ALLOW_THREADS;
-  return Py_BuildValue("(NNNNN)", j_bytes, m_bytes, p_bytes,
-                       r_bytes, w_bytes);
-}
-
-static PyObject* pool_reject(PyObject*, PyObject* args) {
-  // mask[b] = 1 iff u[b] < U and (u[b], j[b]) not in pos_keys — the
-  // rejection half of pool-mode epoch prep
-  // (cymf_tpu.ops.packed_epoch.prep_pool_epoch).  Unlike
-  // bpr_prep_epoch_v2 this draws nothing: the numpy PCG64 stream stays
-  // the single source of randomness (portable across installs), only
-  // the 20M-lookup membership test moves to OpenMP binary search.
-  Py_buffer u_buf{}, j_buf{}, keys_buf{};
-  int64_t n, U, I;
-  if (!PyArg_ParseTuple(args, "y*y*y*LLL", &u_buf, &j_buf, &keys_buf,
-                        &n, &U, &I)) {
-    return nullptr;
-  }
-  BufferGuard ug{u_buf}, jg{j_buf}, kg{keys_buf};
-  if (n <= 0 || U <= 0 || I <= 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject: dimensions must be positive");
-    return nullptr;
-  }
-  if (u_buf.len != n * static_cast<int64_t>(sizeof(int32_t)) ||
-      j_buf.len != n * static_cast<int64_t>(sizeof(int32_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject: u/j buffer length != n int32");
-    return nullptr;
-  }
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject: pos_keys must be int64-sized");
-    return nullptr;
-  }
-  const int32_t* u = static_cast<const int32_t*>(u_buf.buf);
-  const int32_t* j = static_cast<const int32_t*>(j_buf.buf);
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-
-  PyObject* m_bytes = PyBytes_FromStringAndSize(nullptr, n * 4);
-  if (!m_bytes) return nullptr;
-  float* mask = reinterpret_cast<float*>(PyBytes_AS_STRING(m_bytes));
-
-  Py_BEGIN_ALLOW_THREADS;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-  for (int64_t b = 0; b < n; ++b) {
-    bool live = static_cast<int64_t>(u[b]) < U;
-    if (live && nkeys > 0) {
-      const int64_t key = static_cast<int64_t>(u[b]) * I + j[b];
-      const int64_t* lo =
-          std::lower_bound(pos_keys, pos_keys + nkeys, key);
-      if (lo != pos_keys + nkeys && *lo == key) live = false;
-    }
-    mask[b] = live ? 1.0f : 0.0f;
-  }
-  Py_END_ALLOW_THREADS;
-  return m_bytes;
-}
-
-static PyObject* pool_reject_v2(PyObject*, PyObject* args) {
-  // Rejection via per-user key ranges: ``indptr`` (int64[U+1]) bounds
-  // each user's contiguous slice of the sorted ``pos_keys`` (== the
-  // training CSR's indptr), so every membership test is an ~8-probe
-  // binary search over a cache-resident ~1KB slice instead of ~24
-  // DRAM-random probes over the full 20M-key array (measured 10x).
-  Py_buffer u_buf{}, j_buf{}, keys_buf{}, ptr_buf{};
-  int64_t n, U, I;
-  if (!PyArg_ParseTuple(args, "y*y*y*y*LLL", &u_buf, &j_buf, &keys_buf,
-                        &ptr_buf, &n, &U, &I)) {
-    return nullptr;
-  }
-  BufferGuard ug{u_buf}, jg{j_buf}, kg{keys_buf}, pg{ptr_buf};
-  if (n <= 0 || U <= 0 || I <= 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v2: dimensions must be positive");
-    return nullptr;
-  }
-  if (u_buf.len != n * static_cast<int64_t>(sizeof(int32_t)) ||
-      j_buf.len != n * static_cast<int64_t>(sizeof(int32_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v2: u/j buffer length != n int32");
-    return nullptr;
-  }
-  if (ptr_buf.len != (U + 1) * static_cast<int64_t>(sizeof(int64_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v2: indptr length != (U+1) int64");
-    return nullptr;
-  }
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-  const int64_t* indptr = static_cast<const int64_t*>(ptr_buf.buf);
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0 ||
-      indptr[0] != 0 || indptr[U] != nkeys) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v2: indptr must span pos_keys exactly");
-    return nullptr;
-  }
-  const int32_t* u = static_cast<const int32_t*>(u_buf.buf);
-  const int32_t* j = static_cast<const int32_t*>(j_buf.buf);
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-
-  PyObject* m_bytes = PyBytes_FromStringAndSize(nullptr, n * 4);
-  if (!m_bytes) return nullptr;
-  float* mask = reinterpret_cast<float*>(PyBytes_AS_STRING(m_bytes));
-
-  bool bad_range = false;
-  Py_BEGIN_ALLOW_THREADS;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) reduction(||: bad_range)
-#endif
-  for (int64_t b = 0; b < n; ++b) {
-    const int64_t ub = static_cast<int64_t>(u[b]);
-    bool live = ub < U;
-    if (ub < 0) {
-      bad_range = true;
-      live = false;
-    }
-    if (live) {
-      const int64_t lo = indptr[ub], hi = indptr[ub + 1];
-      if (lo < 0 || hi < lo || hi > nkeys) {
-        bad_range = true;
-      } else {
-        const int64_t key = ub * I + j[b];
-        live = !std::binary_search(pos_keys + lo, pos_keys + hi, key);
-      }
-    }
-    mask[b] = live ? 1.0f : 0.0f;
-  }
-  Py_END_ALLOW_THREADS;
-  if (bad_range) {
-    Py_DECREF(m_bytes);
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v2: indptr not nondecreasing in range");
-    return nullptr;
-  }
-  return m_bytes;
-}
-
-static inline uint64_t splitmix64(uint64_t z) {
-  z += 0x9e3779b97f4a7c15ULL;
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
-  return z ^ (z >> 31);
-}
-
-static PyObject* build_key_filter(PyObject*, PyObject* args) {
-  // One-bit-per-hash membership filter over the sorted positive keys.
-  // Built once per fit; lookups then cost ~1 DRAM miss (prefetchable)
-  // instead of a ~6-miss binary search, with exact fallback on set bits
-  // (see pool_reject_v3) — so results stay bit-identical to the numpy
-  // searchsorted path.
-  Py_buffer keys_buf{};
-  int64_t log2_bits;
-  if (!PyArg_ParseTuple(args, "y*L", &keys_buf, &log2_bits)) {
-    return nullptr;
-  }
-  BufferGuard kg{keys_buf};
-  if (log2_bits < 10 || log2_bits > 36 ||
-      keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "build_key_filter: log2_bits in [10, 36] and int64 "
-                    "keys required");
-    return nullptr;
-  }
-  const int64_t* keys = static_cast<const int64_t*>(keys_buf.buf);
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-  const int64_t nwords = (1LL << log2_bits) / 64;
-  PyObject* f_bytes = PyBytes_FromStringAndSize(nullptr, nwords * 8);
-  if (!f_bytes) return nullptr;
-  uint64_t* bits = reinterpret_cast<uint64_t*>(PyBytes_AS_STRING(f_bytes));
-  const int shift = 64 - static_cast<int>(log2_bits);
-
-  Py_BEGIN_ALLOW_THREADS;
-  std::fill(bits, bits + nwords, 0ULL);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-  for (int64_t k = 0; k < nkeys; ++k) {
-    const uint64_t h =
-        splitmix64(static_cast<uint64_t>(keys[k])) >> shift;
-    __atomic_fetch_or(&bits[h >> 6], 1ULL << (h & 63), __ATOMIC_RELAXED);
-  }
-  Py_END_ALLOW_THREADS;
-  return f_bytes;
-}
-
-static PyObject* pool_reject_v3(PyObject*, PyObject* args) {
-  // Filter-accelerated rejection: test the 1-bit filter first
-  // (software-prefetched 64 lookups ahead — the whole pass streams at
-  // memory bandwidth instead of serial DRAM latency); only set bits
-  // (true positives ~0.5% + filter false positives) fall back to the
-  // exact per-user binary search, so the mask is bit-identical to the
-  // numpy searchsorted path.
-  Py_buffer u_buf{}, j_buf{}, keys_buf{}, ptr_buf{}, f_buf{};
-  int64_t n, U, I, log2_bits;
-  if (!PyArg_ParseTuple(args, "y*y*y*y*y*LLLL", &u_buf, &j_buf,
-                        &keys_buf, &ptr_buf, &f_buf, &n, &U, &I,
-                        &log2_bits)) {
-    return nullptr;
-  }
-  BufferGuard ug{u_buf}, jg{j_buf}, kg{keys_buf}, pg{ptr_buf}, fg{f_buf};
-  if (n <= 0 || U <= 0 || I <= 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: dimensions must be positive");
-    return nullptr;
-  }
-  if (u_buf.len != n * static_cast<int64_t>(sizeof(int32_t)) ||
-      j_buf.len != n * static_cast<int64_t>(sizeof(int32_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: u/j buffer length != n int32");
-    return nullptr;
-  }
-  if (ptr_buf.len != (U + 1) * static_cast<int64_t>(sizeof(int64_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: indptr length != (U+1) int64");
-    return nullptr;
-  }
-  if (log2_bits < 10 || log2_bits > 36 ||
-      f_buf.len != (1LL << log2_bits) / 8) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: filter length != 2^log2_bits bits");
-    return nullptr;
-  }
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-  const int64_t* indptr = static_cast<const int64_t*>(ptr_buf.buf);
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0 ||
-      indptr[0] != 0 || indptr[U] != nkeys) {
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: indptr must span pos_keys exactly");
-    return nullptr;
-  }
-  const int32_t* u = static_cast<const int32_t*>(u_buf.buf);
-  const int32_t* j = static_cast<const int32_t*>(j_buf.buf);
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-  const uint64_t* bits = static_cast<const uint64_t*>(f_buf.buf);
-  const int shift = 64 - static_cast<int>(log2_bits);
-
-  PyObject* m_bytes = PyBytes_FromStringAndSize(nullptr, n * 4);
-  if (!m_bytes) return nullptr;
-  float* mask = reinterpret_cast<float*>(PyBytes_AS_STRING(m_bytes));
-
-  bool bad_range = false;
-  Py_BEGIN_ALLOW_THREADS;
-  constexpr int64_t kAhead = 64;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static) reduction(||: bad_range)
-#endif
-  for (int64_t blk = 0; blk < (n + 4095) / 4096; ++blk) {
-    const int64_t lo_b = blk * 4096;
-    const int64_t hi_b = std::min(lo_b + 4096, n);
-    for (int64_t b = lo_b; b < hi_b; ++b) {
-      if (b + kAhead < hi_b) {
-        const int64_t ua = static_cast<int64_t>(u[b + kAhead]);
-        if (ua < U) {
-          const uint64_t ha = splitmix64(
-              static_cast<uint64_t>(ua * I + j[b + kAhead])) >> shift;
-          __builtin_prefetch(&bits[ha >> 6], 0, 0);
-        }
-      }
-      const int64_t ub = static_cast<int64_t>(u[b]);
-      bool live = ub < U;
-      if (ub < 0) {
-        bad_range = true;
-        live = false;
-      }
-      if (live) {
-        const int64_t key = ub * I + j[b];
-        const uint64_t h =
-            splitmix64(static_cast<uint64_t>(key)) >> shift;
-        if (bits[h >> 6] & (1ULL << (h & 63))) {
-          const int64_t lo = indptr[ub], hi = indptr[ub + 1];
-          if (lo < 0 || hi < lo || hi > nkeys) {
-            bad_range = true;
-          } else {
-            live = !std::binary_search(pos_keys + lo, pos_keys + hi, key);
-          }
-        }
-      }
-      mask[b] = live ? 1.0f : 0.0f;
-    }
-  }
-  Py_END_ALLOW_THREADS;
-  if (bad_range) {
-    Py_DECREF(m_bytes);
-    PyErr_SetString(PyExc_ValueError,
-                    "pool_reject_v3: indptr not nondecreasing in range");
-    return nullptr;
-  }
-  return m_bytes;
-}
-
-static PyObject* bpr_prep_epoch_v3(PyObject*, PyObject* args) {
-  // v2 with filter-accelerated rejection: same mt19937_64 per-step
-  // streams and outputs BIT-IDENTICAL to bpr_prep_epoch_v2 (draws
-  // happen first in the same order; only the membership test changes —
-  // 1-bit filter probe with software prefetch, exact per-user-range
-  // binary search on set bits).
-  Py_buffer u_buf{}, keys_buf{}, ptr_buf{}, f_buf{};
-  int64_t S, B, U, I, slots, rh, wrows, tile, seed, log2_bits;
-  if (!PyArg_ParseTuple(args, "y*y*y*y*LLLLLLLLLL", &u_buf, &keys_buf,
-                        &ptr_buf, &f_buf, &S, &B, &U, &I, &slots, &rh,
-                        &wrows, &tile, &seed, &log2_bits)) {
-    return nullptr;
-  }
-  BufferGuard ug{u_buf}, kg{keys_buf}, pg{ptr_buf}, fg{f_buf};
-  if (S <= 0 || B <= 0 || U <= 0 || I <= 0 || slots <= 0 || wrows <= 0 ||
-      tile <= 0 || rh <= 0 || rh % wrows != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: dimensions must be positive and "
-                    "rh a multiple of wrows");
-    return nullptr;
-  }
-  if ((I + slots - 1) / slots > rh) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: rh must cover ceil(I/slots) "
-                    "physical rows");
-    return nullptr;
-  }
-  if (u_buf.len != S * B * static_cast<int64_t>(sizeof(int32_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: u2 buffer length != S*B int32");
-    return nullptr;
-  }
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0 ||
-      ptr_buf.len != (U + 1) * static_cast<int64_t>(sizeof(int64_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: bad pos_keys/indptr buffer");
-    return nullptr;
-  }
-  if (log2_bits < 10 || log2_bits > 36 ||
-      f_buf.len != (1LL << log2_bits) / 8) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: filter length != 2^log2_bits "
-                    "bits");
-    return nullptr;
-  }
-  const int32_t* u2 = static_cast<const int32_t*>(u_buf.buf);
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-  const int64_t* indptr = static_cast<const int64_t*>(ptr_buf.buf);
-  const uint64_t* bits = static_cast<const uint64_t*>(f_buf.buf);
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-  if (indptr[0] != 0 || indptr[U] != nkeys) {
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: indptr must span pos_keys");
-    return nullptr;
-  }
-  const int shift = 64 - static_cast<int>(log2_bits);
-
-  const int64_t nw = rh / wrows;
-  PyObject* j_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* m_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* p_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* r_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* w_bytes = PyBytes_FromStringAndSize(nullptr, S * 2 * nw * 4);
-  if (!j_bytes || !m_bytes || !p_bytes || !r_bytes || !w_bytes) {
-    Py_XDECREF(j_bytes); Py_XDECREF(m_bytes); Py_XDECREF(p_bytes);
-    Py_XDECREF(r_bytes); Py_XDECREF(w_bytes);
-    return nullptr;
-  }
-  int32_t* j2 = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(j_bytes));
-  float* mask = reinterpret_cast<float*>(PyBytes_AS_STRING(m_bytes));
-  int32_t* sj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(p_bytes));
-  int32_t* rowsj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(r_bytes));
-  int32_t* winj = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(w_bytes));
-
-  bool bad_range = false;
-  Py_BEGIN_ALLOW_THREADS;
-  constexpr int64_t kAhead = 64;
-#ifdef _OPENMP
-#pragma omp parallel reduction(||: bad_range)
-#endif
-  {
-    std::vector<int64_t> counts(rh + 1);
-#ifdef _OPENMP
-#pragma omp for schedule(dynamic)
-#endif
-    for (int64_t t = 0; t < S; ++t) {
-      const int32_t* u = u2 + t * B;
-      int32_t* j = j2 + t * B;
-      float* mf = mask + t * B;
-      uint64_t z = static_cast<uint64_t>(seed) + 0x9e3779b97f4a7c15ULL *
-                   (static_cast<uint64_t>(t) + 1);
-      z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
-      z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
-      std::mt19937_64 gen(z ^ (z >> 31));
-      std::uniform_int_distribution<int64_t> dist(0, I - 1);
-      // pass 1: draws only (same stream order as v2)
-      for (int64_t b = 0; b < B; ++b) {
-        j[b] = static_cast<int32_t>(dist(gen));
-      }
-      // pass 2: rejection with filter probes prefetched ahead
-      for (int64_t b = 0; b < B; ++b) {
-        if (b + kAhead < B) {
-          const int64_t ua = static_cast<int64_t>(u[b + kAhead]);
-          if (ua < U) {
-            const uint64_t ha = splitmix64(
-                static_cast<uint64_t>(ua * I + j[b + kAhead])) >> shift;
-            __builtin_prefetch(&bits[ha >> 6], 0, 0);
-          }
-        }
-        const int64_t ub = static_cast<int64_t>(u[b]);
-        bool live = ub < U;
-        if (ub < 0) {
-          bad_range = true;
-          live = false;
-        }
-        if (live && nkeys > 0) {
-          const int64_t key = ub * I + j[b];
-          const uint64_t h =
-              splitmix64(static_cast<uint64_t>(key)) >> shift;
-          if (bits[h >> 6] & (1ULL << (h & 63))) {
-            const int64_t lo = indptr[ub], hi = indptr[ub + 1];
-            if (lo < 0 || hi < lo || hi > nkeys) {
-              bad_range = true;
-            } else {
-              live = !std::binary_search(pos_keys + lo, pos_keys + hi,
-                                         key);
-            }
-          }
-        }
-        mf[b] = live ? 1.0f : 0.0f;
-      }
-      // counting sort of j by physical row (identical to v2)
-      std::fill(counts.begin(), counts.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++counts[j[b] / slots + 1];
-      for (int64_t r = 0; r < rh; ++r) counts[r + 1] += counts[r];
-      int32_t* ws = winj + t * 2 * nw;
-      for (int64_t w = 0; w < nw; ++w) {
-        const int64_t lo = counts[w * wrows];
-        const int64_t hi =
-            (w + 1) * wrows <= rh ? counts[(w + 1) * wrows] : B;
-        int64_t astart = (lo / 128) * 128;
-        const int64_t nch = (hi - astart + tile - 1) / tile;
-        if (astart + nch * tile > B) {
-          int64_t need = (B - lo + tile - 1) / tile;
-          if (nch > need) need = nch;
-          astart = B - need * tile;
-        }
-        ws[w] = static_cast<int32_t>(astart);
-        ws[nw + w] = static_cast<int32_t>(hi - astart);
-      }
-      int32_t* pj = sj + t * B;
-      int32_t* rj = rowsj + t * B;
-      std::vector<int64_t> cursor(counts.begin(), counts.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[j[b] / slots]++;
-        pj[pos] = static_cast<int32_t>(b);
-        rj[pos] = j[b] / slots;
-      }
-    }
-  }
-  Py_END_ALLOW_THREADS;
-  if (bad_range) {
-    Py_DECREF(j_bytes); Py_DECREF(m_bytes); Py_DECREF(p_bytes);
-    Py_DECREF(r_bytes); Py_DECREF(w_bytes);
-    PyErr_SetString(PyExc_ValueError,
-                    "bpr_prep_epoch_v3: indptr not nondecreasing");
-    return nullptr;
-  }
-  return Py_BuildValue("(NNNNN)", j_bytes, m_bytes, p_bytes,
-                       r_bytes, w_bytes);
-}
-
-
-static PyObject* relmf_prep_epoch(PyObject*, PyObject* args) {
-  // Per-epoch RelMF prep (packed engine): draw S*B uniform (u, i) cells
-  // (positives AND negatives, /root/reference/cymf/relmf.pyx:143-148 —
-  // behavior reimplemented, not copied), label each by membership in the
-  // sorted positive keys (filter probe + exact per-user binary search,
-  // the same scheme as bpr_prep_epoch_v3's rejection), counting-sort
-  // each step by the user's packed row (the kernel's W-side order), and
-  // build both accumulation sides' 128-aligned window ranges.  The
-  // mt19937_64 per-step streams make the epoch deterministic in
-  // (seed, step) and independent of thread scheduling.
-  Py_buffer keys_buf{}, ptr_buf{}, f_buf{};
-  int64_t S, B, U, I, slots, rw, rh, wrows_w, wrows_h, tile, seed,
-      log2_bits;
-  if (!PyArg_ParseTuple(args, "y*y*y*LLLLLLLLLLLL", &keys_buf, &ptr_buf,
-                        &f_buf, &S, &B, &U, &I, &slots, &rw, &rh,
-                        &wrows_w, &wrows_h, &tile, &seed, &log2_bits)) {
-    return nullptr;
-  }
-  BufferGuard kg{keys_buf}, pg{ptr_buf}, fg{f_buf};
-  if (S <= 0 || B <= 0 || U <= 0 || I <= 0 || slots <= 0 ||
-      wrows_w <= 0 || wrows_h <= 0 || tile <= 0 || rw <= 0 || rh <= 0 ||
-      rw % wrows_w != 0 || rh % wrows_h != 0) {
-    PyErr_SetString(PyExc_ValueError,
-                    "relmf_prep_epoch: dimensions must be positive, "
-                    "rw/rh multiples of their wrows");
-    return nullptr;
-  }
-  if ((U + slots - 1) / slots > rw || I > rh) {
-    PyErr_SetString(PyExc_ValueError,
-                    "relmf_prep_epoch: rw/rh must cover the tables");
-    return nullptr;
-  }
-  if (keys_buf.len % static_cast<int64_t>(sizeof(int64_t)) != 0 ||
-      ptr_buf.len != (U + 1) * static_cast<int64_t>(sizeof(int64_t))) {
-    PyErr_SetString(PyExc_ValueError,
-                    "relmf_prep_epoch: bad pos_keys/indptr buffer");
-    return nullptr;
-  }
-  if (log2_bits < 10 || log2_bits > 36 ||
-      f_buf.len != (1LL << log2_bits) / 8) {
-    PyErr_SetString(PyExc_ValueError,
-                    "relmf_prep_epoch: filter length != 2^log2_bits bits");
-    return nullptr;
-  }
-  const int64_t* pos_keys = static_cast<const int64_t*>(keys_buf.buf);
-  const int64_t* indptr = static_cast<const int64_t*>(ptr_buf.buf);
-  const uint64_t* bits = static_cast<const uint64_t*>(f_buf.buf);
-  const int64_t nkeys =
-      keys_buf.len / static_cast<int64_t>(sizeof(int64_t));
-  if (indptr[0] != 0 || indptr[U] != nkeys) {
-    PyErr_SetString(PyExc_ValueError,
-                    "relmf_prep_epoch: indptr must span pos_keys");
-    return nullptr;
-  }
-  const int shift = 64 - static_cast<int>(log2_bits);
-
-  const int64_t nww = rw / wrows_w;
-  const int64_t nwh = rh / wrows_h;
-  PyObject* u_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* i_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* l_bytes = PyBytes_FromStringAndSize(nullptr, S * B);
-  PyObject* ww_bytes = PyBytes_FromStringAndSize(nullptr, S * 2 * nww * 4);
-  PyObject* p_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* r_bytes = PyBytes_FromStringAndSize(nullptr, S * B * 4);
-  PyObject* wi_bytes = PyBytes_FromStringAndSize(nullptr, S * 2 * nwh * 4);
-  if (!u_bytes || !i_bytes || !l_bytes || !ww_bytes || !p_bytes ||
-      !r_bytes || !wi_bytes) {
-    Py_XDECREF(u_bytes); Py_XDECREF(i_bytes); Py_XDECREF(l_bytes);
-    Py_XDECREF(ww_bytes); Py_XDECREF(p_bytes); Py_XDECREF(r_bytes);
-    Py_XDECREF(wi_bytes);
-    return nullptr;
-  }
-  int32_t* u2 = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(u_bytes));
-  int32_t* i2 = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(i_bytes));
-  uint8_t* lab = reinterpret_cast<uint8_t*>(PyBytes_AS_STRING(l_bytes));
-  int32_t* winw = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(ww_bytes));
-  int32_t* si = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(p_bytes));
-  int32_t* rowsi = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(r_bytes));
-  int32_t* wini = reinterpret_cast<int32_t*>(PyBytes_AS_STRING(wi_bytes));
-
-  auto windows = [tile](const int64_t* counts, int64_t wrows, int64_t rows,
-                        int64_t nw, int64_t Bn, int32_t* ws) {
-    for (int64_t w = 0; w < nw; ++w) {
-      const int64_t lo = counts[w * wrows];
-      const int64_t hi =
-          (w + 1) * wrows <= rows ? counts[(w + 1) * wrows] : Bn;
-      int64_t astart = (lo / 128) * 128;
-      const int64_t nch = (hi - astart + tile - 1) / tile;
-      if (astart + nch * tile > Bn) {
-        int64_t need = (Bn - lo + tile - 1) / tile;
-        if (nch > need) need = nch;
-        astart = Bn - need * tile;
-      }
-      ws[w] = static_cast<int32_t>(astart);
-      ws[nw + w] = static_cast<int32_t>(hi - astart);
-    }
-  };
-
-  Py_BEGIN_ALLOW_THREADS;
-  constexpr int64_t kAhead = 64;
-#ifdef _OPENMP
-#pragma omp parallel
-#endif
-  {
-    std::vector<int32_t> ru(B), ri(B);
-    std::vector<uint8_t> rl(B);
-    std::vector<int64_t> countsw(rw + 1), countsh(rh + 1);
-#ifdef _OPENMP
-#pragma omp for schedule(dynamic)
-#endif
-    for (int64_t t = 0; t < S; ++t) {
-      uint64_t z = static_cast<uint64_t>(seed) + 0x9e3779b97f4a7c15ULL *
-                   (static_cast<uint64_t>(t) + 1);
-      z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
-      z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
-      std::mt19937_64 gen(z ^ (z >> 31));
-      std::uniform_int_distribution<int64_t> dist(0, U * I - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t r = dist(gen);
-        ru[b] = static_cast<int32_t>(r / I);
-        ri[b] = static_cast<int32_t>(r % I);
-      }
-      // labels: filter probe (prefetched) + exact per-user range search
-      for (int64_t b = 0; b < B; ++b) {
-        if (b + kAhead < B) {
-          const uint64_t ha = splitmix64(static_cast<uint64_t>(
-              static_cast<int64_t>(ru[b + kAhead]) * I +
-              ri[b + kAhead])) >> shift;
-          __builtin_prefetch(&bits[ha >> 6], 0, 0);
-        }
-        const int64_t key = static_cast<int64_t>(ru[b]) * I + ri[b];
-        bool hit = false;
-        if (nkeys > 0) {
-          const uint64_t h =
-              splitmix64(static_cast<uint64_t>(key)) >> shift;
-          if (bits[h >> 6] & (1ULL << (h & 63))) {
-            const int64_t lo = indptr[ru[b]], hi = indptr[ru[b] + 1];
-            hit = std::binary_search(pos_keys + lo, pos_keys + hi, key);
-          }
-        }
-        rl[b] = hit ? 1 : 0;
-      }
-      // counting sort by the user's packed row; W windows from counts
-      std::fill(countsw.begin(), countsw.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++countsw[ru[b] / slots + 1];
-      for (int64_t r = 0; r < rw; ++r) countsw[r + 1] += countsw[r];
-      windows(countsw.data(), wrows_w, rw, nww, B, winw + t * 2 * nww);
-      int32_t* us = u2 + t * B;
-      int32_t* is = i2 + t * B;
-      uint8_t* ls = lab + t * B;
-      {
-        std::vector<int64_t> cursor(countsw.begin(), countsw.end() - 1);
-        for (int64_t b = 0; b < B; ++b) {
-          const int64_t pos = cursor[ru[b] / slots]++;
-          us[pos] = ru[b];
-          is[pos] = ri[b];
-          ls[pos] = rl[b];
-        }
-      }
-      // i side over the u-sorted stream (logical H rows: row == item id)
-      std::fill(countsh.begin(), countsh.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++countsh[is[b] + 1];
-      for (int64_t r = 0; r < rh; ++r) countsh[r + 1] += countsh[r];
-      windows(countsh.data(), wrows_h, rh, nwh, B, wini + t * 2 * nwh);
-      int32_t* ps = si + t * B;
-      int32_t* rs = rowsi + t * B;
-      std::vector<int64_t> cursor(countsh.begin(), countsh.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[is[b]]++;
-        ps[pos] = static_cast<int32_t>(b);
-        rs[pos] = is[b];
-      }
-    }
-  }
-  Py_END_ALLOW_THREADS;
-  return Py_BuildValue("(NNNNNNN)", u_bytes, i_bytes, l_bytes, ww_bytes,
-                       p_bytes, r_bytes, wi_bytes);
-}
-
 static PyMethodDef kMethods[] = {
     {"cooccurrence", cooccurrence, METH_VARARGS,
      "Accumulate left-window 1/distance co-occurrence counts."},
-    {"bpr_prep_epoch_v2", bpr_prep_epoch_v2, METH_VARARGS,
-     "Per-epoch BPR host prep: draws, rejection, j-side sort + windows."},
-    {"pool_reject", pool_reject, METH_VARARGS,
-     "Pool-mode rejection mask: parallel sorted-key membership test."},
-    {"pool_reject_v2", pool_reject_v2, METH_VARARGS,
-     "Rejection mask via per-user indptr ranges (cache-resident)."},
-    {"build_key_filter", build_key_filter, METH_VARARGS,
-     "One-bit membership filter over sorted keys (built once per fit)."},
-    {"pool_reject_v3", pool_reject_v3, METH_VARARGS,
-     "Filter-accelerated rejection mask (prefetch + exact fallback)."},
-    {"relmf_prep_epoch", relmf_prep_epoch, METH_VARARGS,
-     "Per-epoch RelMF cell draw + label + both-side sort/window prep."},
-    {"bpr_prep_epoch_v3", bpr_prep_epoch_v3, METH_VARARGS,
-     "v2 prep with filter-accelerated rejection (same streams)."},
     {nullptr, nullptr, 0, nullptr},
 };
 

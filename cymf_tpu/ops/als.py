@@ -2,11 +2,11 @@
 
 The reference solves one K x K system per user/item row inside an OpenMP
 loop, with per-thread ``malloc`` and LAPACK ``dgesv``
-(`/root/reference/cymf/wmf.pyx:150-174`, `linalg.pyx:144-163`).  The
-TPU-native formulation batches rows:
+(`/root/reference/cymf/wmf.pyx:150-174`, `linalg.pyx:144-163`).  This
+formulation batches rows:
 
-* the shared Gramian ``YtY`` is one ``K x K`` matmul on the MXU (row-sharded
-  ``Y`` makes this a local matmul + psum inserted by XLA);
+* the shared Gramian ``YtY`` is one ``K x K`` matmul (row-sharded ``Y``
+  makes this a local matmul + psum);
 * per-row rank-``deg`` corrections come from a padded gather of the row's
   positives: ``A_c = A0 + (c-1) * sub^T sub`` as one batched einsum;
 * the solves are batched Cholesky (SPD by construction for ``weight >= 1``,
@@ -16,6 +16,9 @@ TPU-native formulation batches rows:
 Rows are grouped into degree-bucketed chunks on the host (ascending-degree
 sort, pad length rounded to a power of two) so the padded gather stays tight
 at ML-20M scale instead of a dense ``rows x max_degree`` matrix.
+
+Every float32 product here passes ``precision=HIGHEST``: without it the GPU
+may run it in TF32, whose 10-bit mantissa would dominate the solve error.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ import jax.numpy as jnp
 import numpy as np
 from scipy import sparse
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def gramian(Y: jax.Array) -> jax.Array:
+    """``Y^T Y`` in float32 at full precision (the shared ALS Gramian)."""
+    return jnp.matmul(Y.T, Y, preferred_element_type=jnp.float32,
+                      precision=HIGHEST)
+
 
 def solve_spd_xla(A: jax.Array, b: jax.Array) -> jax.Array:
     """Batched SPD solve via the XLA Cholesky: A [..., K, K], b [..., K]."""
@@ -39,41 +50,32 @@ def solve_spd_xla(A: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def solve_spd_blocked(A: jax.Array, b: jax.Array,
-                      block: int = 64, diag: str = "xla") -> jax.Array:
-    """Batched SPD solve via the JAX-level blocked Cholesky (round 5 —
-    the last ALS d>=256 wall, docs/ROOFLINE.md).
+                      block: int = 64) -> jax.Array:
+    """Batched SPD solve via a JAX-level blocked Cholesky.
 
-    XLA's TPU Cholesky expander factorizes 128-wide panels with a
-    sequential rank-1 loop that re-streams the whole (C, 128, 128)
-    panel buffer every iteration — measured ~180 ms for a
-    (2048, 256, 256) batch, ~400x the MXU FLOP time.  This form runs a
-    blocked left-looking factorization instead: tiny diagonal-block
-    Cholesky calls + MXU matmul trailing updates + explicit
-    diagonal-block inverses so the substitution phase is matmuls too
-    (no TriangularSolve expander anywhere at K x K).  Identical
-    solution up to f32 round-off.  Falls back to the XLA form when the
-    matrix is not divisible by / larger than ``block`` — e.g. the tiny
-    P x P Woodbury capacitance solves.  ``block`` is a trace-time
-    constant: jitted callers receive it through the solver NAME
-    (``cholesky_blocked<block>``, see :func:`resolve_chol_solver` /
-    :func:`get_solver`) so it participates in the jit cache key.
+    A blocked left-looking factorization: ``block x block`` diagonal
+    Cholesky calls, batched-matmul trailing updates, and explicit
+    diagonal-block inverses so that both substitution sweeps are batched
+    matmuls too.  Identical solution up to f32 round-off.  Falls back to
+    the XLA form when the matrix is not divisible by / larger than
+    ``block`` — e.g. the tiny P x P Woodbury capacitance solves.
+    ``block`` is a trace-time constant: jitted callers receive it
+    through the solver NAME (``cholesky_blocked<block>``, see
+    :func:`resolve_chol_solver` / :func:`get_solver`) so it participates
+    in the jit cache key.
     """
     K = A.shape[-1]
     if K > block and K % block == 0:
-        return _solve_spd_blocked(A, b, block, diag)
+        return _solve_spd_blocked(A, b, block)
     return solve_spd_xla(A, b)
 
 
 def resolve_chol_solver(solver: str, num_components: int) -> str:
     """Resolve the user-facing ``"cholesky"`` solver name to an explicit
-    ``cholesky_xla`` / ``cholesky_blocked<block>`` /
-    ``cholesky_pallas<block>`` form per the ``CYMF_TPU_ALS_CHOL`` knob
-    (auto|xla|blocked|pallas; auto = the fast forms at K >= 128 —
-    pallas on TPU backends, blocked elsewhere — where the XLA
-    expander's panel loop dominates the chunk solve, docs/ROOFLINE.md
-    ALS sections) and the
-    ``CYMF_TPU_ALS_CHOL_BLOCK`` block size (default 64, the measured
-    optimum).
+    ``cholesky_xla`` / ``cholesky_blocked<block>`` form per the
+    ``CYMF_TPU_ALS_CHOL`` knob (auto|xla|blocked) and the
+    ``CYMF_TPU_ALS_CHOL_BLOCK`` block size (default 64).  ``auto`` picks
+    the blocked form at K >= 128 and the XLA form below.
 
     Models call this ONCE per fit so BOTH choices land in every jit
     cache key (the solver string is a static argument everywhere);
@@ -87,29 +89,20 @@ def resolve_chol_solver(solver: str, num_components: int) -> str:
         return solver
     import os
     mode = os.environ.get("CYMF_TPU_ALS_CHOL", "auto")
-    if mode not in ("auto", "xla", "blocked", "pallas"):
-        raise ValueError("CYMF_TPU_ALS_CHOL must be auto|xla|blocked|pallas")
-    if mode != "xla" and num_components >= (0 if mode != "auto" else 128):
+    if mode not in ("auto", "xla", "blocked"):
+        raise ValueError("CYMF_TPU_ALS_CHOL must be auto|xla|blocked")
+    if mode == "blocked" or (mode == "auto" and num_components >= 128):
         block = int(os.environ.get("CYMF_TPU_ALS_CHOL_BLOCK", "64"))
         if num_components > block and num_components % block == 0:
-            if mode == "auto":
-                # measured on v5e (docs/measurements/r5/pallas_solve.log):
-                # the in-VMEM Pallas diagonal kernel is 1.5x the JAX
-                # blocked form on TPU; off-TPU it would run interpret
-                # mode, so the CPU mesh keeps the XLA-diag blocked form
-                kind = ("pallas" if jax.default_backend() == "tpu"
-                        else "blocked")
-            else:
-                kind = "pallas" if mode == "pallas" else "blocked"
-            return f"cholesky_{kind}{block}"
+            return f"cholesky_blocked{block}"
     return "cholesky_xla"
 
 
 def solve_spd(A: jax.Array, b: jax.Array) -> jax.Array:
-    """Batched SPD solve: auto-routed between the XLA and blocked
-    Cholesky forms by matrix size (delegates to
-    :func:`resolve_chol_solver`; for EAGER use — jitted model code
-    resolves the name up front instead so knob changes retrace)."""
+    """Batched SPD solve: routed between the XLA and blocked Cholesky
+    forms (delegates to :func:`resolve_chol_solver`; for EAGER use —
+    jitted model code resolves the name up front instead so knob
+    changes retrace)."""
     return get_solver(resolve_chol_solver("cholesky", A.shape[-1]))(A, b)
 
 
@@ -117,29 +110,24 @@ def get_solver(name: str):
     """Solver-name -> callable, including parameterized
     ``cholesky_blocked<block>`` names (the block size rides the name so
     it is part of every jit cache key)."""
-    for kind, diag in (("cholesky_blocked", "xla"),
-                       ("cholesky_pallas", "pallas")):
-        if name.startswith(kind):
-            suffix = name[len(kind):]
-            block = int(suffix) if suffix else 64
-            return functools.partial(solve_spd_blocked, block=block,
-                                     diag=diag)
+    if name.startswith("cholesky_blocked"):
+        suffix = name[len("cholesky_blocked"):]
+        return functools.partial(solve_spd_blocked,
+                                 block=int(suffix) if suffix else 64)
     return _SOLVERS[name]
 
 
-def _solve_spd_blocked(A: jax.Array, b: jax.Array, block: int,
-                       diag: str = "xla") -> jax.Array:
-    """Batched blocked left-looking Cholesky solve (see :func:`solve_spd`).
+def _solve_spd_blocked(A: jax.Array, b: jax.Array,
+                       block: int) -> jax.Array:
+    """Batched blocked left-looking Cholesky solve (see
+    :func:`solve_spd_blocked`).
 
     The matrix is partitioned into ``nb = K/block`` block rows.  Per
-    block column j: the diagonal block (minus its left updates, MXU
-    einsums over the batch) is factorized by the XLA Cholesky at
-    ``block x block`` — the expander's sequential loop now streams a
-    (C, block, block) buffer instead of (C, 128, 128) per step and runs
-    ``block`` steps per panel — and its inverse is taken once
-    (``block x block`` TriangularSolve) so panel formation and both
-    substitution sweeps become batched matmuls.  All Python loops are
-    static (nb is a trace-time constant); everything lands on the MXU.
+    block column j: the diagonal block (minus its left updates, batched
+    einsums) is factorized by the XLA Cholesky at ``block x block`` and
+    its inverse is taken once (``block x block`` TriangularSolve), so
+    panel formation and both substitution sweeps become batched
+    matmuls.  All Python loops are static (nb is a trace-time constant).
     """
     f32 = jnp.float32
     K = A.shape[-1]
@@ -154,66 +142,44 @@ def _solve_spd_blocked(A: jax.Array, b: jax.Array, block: int,
     def dblk(M, i, j):
         return M[:, i * block:(i + 1) * block, j * block:(j + 1) * block]
 
+    def mm(spec, x, y):
+        return jnp.einsum(spec, x, y, preferred_element_type=f32,
+                          precision=HIGHEST)
+
     eye = jnp.eye(block, dtype=A2.dtype)
-    def xla_diag(Ajj):
+
+    def diag_factor(Ajj):
         Ljj = jnp.linalg.cholesky(Ajj)
         return Ljj, jax.scipy.linalg.solve_triangular(
             Ljj, jnp.broadcast_to(eye, Ljj.shape), lower=True)
 
-    if diag == "pallas":
-        from .chol_kernel import chol_inv_batched
-        interpret = jax.default_backend() != "tpu"
-
-        def diag_factor(Ajj):
-            # small batches: (G < 8, B) vectors trip a Mosaic relayout
-            # ("non-singleton dimension replicated") and the XLA
-            # expander is cheap there anyway (found on hardware)
-            if Ajj.shape[0] < 256:
-                return xla_diag(Ajj)
-            return chol_inv_batched(Ajj, block=block, interpret=interpret)
-    else:
-        diag_factor = xla_diag
     L = [[None] * nb for _ in range(nb)]
     Dinv = [None] * nb
     for j in range(nb):
         Ajj = dblk(A2, j, j)
         for k in range(j):
-            Ajj = Ajj - jnp.einsum("cab,cdb->cad", L[j][k], L[j][k],
-                                   preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
+            Ajj = Ajj - mm("cab,cdb->cad", L[j][k], L[j][k])
         L[j][j], Dinv[j] = diag_factor(Ajj)
         for i in range(j + 1, nb):
             Aij = dblk(A2, i, j)
             for k in range(j):
-                Aij = Aij - jnp.einsum("cab,cdb->cad", L[i][k], L[j][k],
-                                       preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
+                Aij = Aij - mm("cab,cdb->cad", L[i][k], L[j][k])
             # L[i][j] = Aij @ Ljj^{-T}
-            L[i][j] = jnp.einsum("cab,cdb->cad", Aij, Dinv[j],
-                                 preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
+            L[i][j] = mm("cab,cdb->cad", Aij, Dinv[j])
     # forward substitution: y_j = Ljj^{-1} (b_j - sum_{k<j} L[j][k] y_k)
     y = [None] * nb
     for j in range(nb):
         r = b2[:, j * block:(j + 1) * block]
         for k in range(j):
-            r = r - jnp.einsum("cab,cb->ca", L[j][k], y[k],
-                               preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
-        y[j] = jnp.einsum("cab,cb->ca", Dinv[j], r,
-                          preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
+            r = r - mm("cab,cb->ca", L[j][k], y[k])
+        y[j] = mm("cab,cb->ca", Dinv[j], r)
     # backward substitution: x_j = Ljj^{-T} (y_j - sum_{k>j} L[k][j]^T x_k)
     x = [None] * nb
     for j in range(nb - 1, -1, -1):
         r = y[j]
         for k in range(j + 1, nb):
-            r = r - jnp.einsum("cba,cb->ca", L[k][j], x[k],
-                               preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
-        x[j] = jnp.einsum("cba,cb->ca", Dinv[j], r,
-                          preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
+            r = r - mm("cba,cb->ca", L[k][j], x[k])
+        x[j] = mm("cba,cb->ca", Dinv[j], r)
     out = jnp.concatenate(x, axis=-1)
     return out.reshape(lead + (K,))
 
@@ -254,7 +220,7 @@ def build_chunks(X: sparse.csr_matrix, chunk_size: int, drop_sentinel: int,
     ``num_components``: when given, the cap is additionally scaled so the
     GATHERED ``(C, P, K)`` f32 buffer stays under ~2GB — at K=256 and
     ML-20M degrees the index-entry cap alone admitted a ~34GB gather that
-    OOM'd device compilation (found on hardware, round 4).
+    OOM'd device compilation).
     """
     if num_components > 0:
         max_elems = min(max_elems, max((1 << 29) // num_components, 1 << 16))
@@ -311,7 +277,8 @@ def wmf_chunk_solve(Y, A0, idx_pad, valid, weight, *, solver: str):
     (`wmf.pyx:154-156`)."""
     sub = Y[idx_pad] * valid[..., None].astype(Y.dtype)       # (C, P, K)
     A = A0[None] + (weight - 1.0) * jnp.einsum(
-        "cpk,cpl->ckl", sub, sub, preferred_element_type=jnp.float32)
+        "cpk,cpl->ckl", sub, sub, preferred_element_type=jnp.float32,
+        precision=HIGHEST)
     b = weight * jnp.sum(sub, axis=1)
     x = get_solver(solver)(A, b)
     nonempty = jnp.any(valid, axis=1, keepdims=True)
@@ -321,21 +288,17 @@ def wmf_chunk_solve(Y, A0, idx_pad, valid, weight, *, solver: str):
 @functools.partial(jax.jit, static_argnames=("solver",))
 def wmf_chunk_solve_woodbury(Y, A0inv, idx_pad, valid, weight, *,
                              solver: str = "cholesky"):
-    """WMF chunk solve via the Woodbury identity (round 5 — the ALS
-    d>=128 MXU lever, verdict #4).  Identical solution to
+    """WMF chunk solve via the Woodbury identity.  Identical solution to
     :func:`wmf_chunk_solve`:
 
         x = (A0 + (c-1) U U^T)^{-1} (c U 1)
           = A0i b - T (I/(c-1) + U^T T)^{-1} (U^T A0i b),  T = A0i U
 
-    Why: the standard form's correction einsum ``cpk,cpl->ckl``
-    contracts over the DEGREE pad ``P`` — for small-degree buckets the
-    MXU systolic depth is P/128-utilized (measured 2-6% at P<=16,
-    docs/measurements/r5/als_roofline.log).  Every large matmul here
-    (``A0i U``, ``U^T T``) contracts over ``K`` instead (full depth at
-    K>=128), leaving only a tiny batched P x P Cholesky.  The trainer
-    routes chunks with small ``P`` here and large-``P`` chunks to the
-    standard form (where contraction depth is already >= 128).
+    Why: the standard form factorizes a K x K system per row, while every
+    large product here (``A0i U``, ``U^T T``) contracts over ``K`` and
+    leaves only a batched P x P Cholesky — cheaper when the degree pad
+    ``P`` is small next to ``K``.  The trainer routes chunks with small
+    ``P`` here and large-``P`` chunks to the standard form.
 
     ``A0inv`` is the inverse of the half-sweep's shared
     ``Y^T Y + wd I`` (one K x K inversion per half-sweep).  Requires
@@ -354,23 +317,22 @@ def woodbury_core(sub, A0inv, valid, weight, solver: str):
     """The Woodbury solve on already-gathered, mask-zeroed rows ``sub``
     (C, P, K) — shared by :func:`wmf_chunk_solve_woodbury` and the
     shard_map chunk solver (which resolves rows collectively)."""
+    def mm(spec, x, y):
+        return jnp.einsum(spec, x, y, preferred_element_type=jnp.float32,
+                          precision=HIGHEST)
+
     b = weight * jnp.sum(sub, axis=1)                       # (C, K)
-    T = jnp.einsum("kl,cpl->cpk", A0inv, sub,
-                   preferred_element_type=jnp.float32)      # (C, P, K)
+    T = mm("kl,cpl->cpk", A0inv, sub)                       # (C, P, K)
     P = sub.shape[1]
     M = (jnp.eye(P, dtype=jnp.float32) / (weight - 1.0)
-         + jnp.einsum("cpk,cqk->cpq", sub, T,
-                      preferred_element_type=jnp.float32))
-    A0ib = jnp.einsum("kl,cl->ck", A0inv, b,
-                      preferred_element_type=jnp.float32)
-    UtA0ib = jnp.einsum("cpk,ck->cp", sub, A0ib,
-                        preferred_element_type=jnp.float32)
+         + mm("cpk,cqk->cpq", sub, T))
+    A0ib = mm("kl,cl->ck", A0inv, b)
+    UtA0ib = mm("cpk,ck->cp", sub, A0ib)
     # padded (all-invalid) P positions contribute zero rows to M; the
     # identity diagonal keeps it SPD, and their z entries multiply zero
     # columns of T — the padding is self-cancelling
     z = get_solver(solver)(M, UtA0ib)
-    x = A0ib - jnp.einsum("cpk,cp->ck", T, z,
-                          preferred_element_type=jnp.float32)
+    x = A0ib - mm("cpk,cp->ck", T, z)
     nonempty = jnp.any(valid, axis=1, keepdims=True)
     return jnp.where(nonempty, x, 0.0)
 

@@ -2,16 +2,16 @@
 
 Replaces the vectorized binary search of :func:`cymf_tpu.ops.segment.csr_contains`
 on the training hot path.  The binary search costs ~32 *dependent* gather
-rounds per query batch (measured ~16 ms/step at B=65k on v5e); this hash set
-answers the same query with two independent row-gathers (one per level), ~1 ms.
+rounds per query batch; this hash set answers the same query with two
+independent row-gathers (one per level).
 
 Layout: two levels of bucketized tables, int32 arrays of shape
 ``(num_buckets, 2 * SLOTS)`` — slots ``[:, :SLOTS]`` hold user ids,
 ``[:, SLOTS:]`` hold item ids; one row-gather fetches a whole bucket.
-Level 1 uses 64-way buckets so a row is exactly 128 lanes = one 512-byte
-TPU tile with ZERO lane padding (a 16-wide row would be physically padded
-8x, bloating the table to ~1 GB at ML-20M scale and thrashing gathers —
-measured 2.7 ms vs ~0.4 ms per 131k-query step).  Empty slots hold -1.
+Level 1 uses 64-way buckets, so a row is 128 int32 = 512 bytes (a layout
+chosen for a 128-lane tiling; on the GPU a probe reads the whole 512-byte
+row, and whether narrower buckets probe faster there is unmeasured —
+ROADMAP).  Empty slots hold -1.
 Pairs that overflow their level-1 bucket go to level 2 (different hash
 salt, small enough to stay cache-resident); the host builder grows level 2
 until nothing overflows, so queries are EXACT — no Bloom-style false
@@ -61,8 +61,8 @@ def _mix_jnp(u: jax.Array, i: jax.Array, salt: int) -> jax.Array:
 
 
 class PairHashSet(NamedTuple):
-    table1: jax.Array  # int32[NB1, 16]
-    table2: jax.Array  # int32[NB2, 16]
+    table1: jax.Array  # int32[NB1, 128]
+    table2: jax.Array  # int32[NB2, 32]
 
 
 def _next_pow2(n: int) -> int:

@@ -3,7 +3,7 @@
 The reference library's only parallelism is single-node OpenMP threads over
 samples with lock-free shared-memory parameter updates (Hogwild,
 `/root/reference/cymf/bpr.pyx:162`, `/root/reference/cymf/util.h:13-21`).
-The TPU-native replacement is SPMD over a :class:`jax.sharding.Mesh`:
+The replacement is SPMD over a :class:`jax.sharding.Mesh`:
 
 * **Embedding tables** (``W``: users x K, ``H``: items x K) are *row-sharded*
   across the mesh axis ``"d"`` — the analogue of a parameter server /
@@ -37,7 +37,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Initialize multi-host JAX (no-op for single-process runs).
 
     The reference has no multi-process story at all (SURVEY.md §5); this is
-    the entry point for running on a multi-host TPU pod slice.  Safe to call
+    the entry point for running one process per host over several hosts.  Safe to call
     unconditionally: falls through when no coordinator is configured.
     """
     if coordinator_address is None:

@@ -8,7 +8,7 @@ explicit with ``shard_map`` + hand-placed collectives, so it is guaranteed
 by construction and testable from the HLO:
 
 * tables (and optimizer state) are **row-sharded**: device ``p`` owns rows
-  ``[p * rpd, (p+1) * rpd)`` — model parallelism over the catalog, the TPU
+  ``[p * rpd, (p+1) * rpd)`` — model parallelism over the catalog, the
   replacement for the reference's single shared-memory table
   (`/root/reference/cymf/bpr.pyx:97-101`);
 * the interaction batch is **sharded over samples** — data parallelism, the
@@ -20,7 +20,7 @@ by construction and testable from the HLO:
   scatter-adds the rows it owns into its shard, then runs the dense
   masked optimizer pass on its shard only.
 
-Per-device cost: O(B) index work + O(B/n · K) gradient VPU work +
+Per-device cost: O(B) index work + O(B/n · K) gradient work +
 O(rows_shard · K) optimizer pass — every table- and sample-proportional
 stage shrinks with the mesh.  ``tests/test_sharding_hlo.py`` compiles this
 and fails if a table-sized collective ever appears.
@@ -28,12 +28,11 @@ and fails if a table-sized collective ever appears.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from ..ops.als import HIGHEST, gramian
 from ..ops.hashset import hashset_contains
 from ..ops.segment import csr_lookup
 from .mesh import ROW_AXIS
@@ -256,14 +255,13 @@ def sharded_wmf_chunk(mesh_ctx, weight: float, weight_decay: float,
     all_gather/psum_scatter pattern.  Solutions all_gather (C x K, small)
     so each device scatters the target rows it owns.
 
-    ``wb_max_p`` (round 5): chunks whose degree pad ``P`` is <= this
+    ``wb_max_p``: chunks whose degree pad ``P`` is <= this
     solve via the Woodbury identity (`ops.als.wmf_chunk_solve_woodbury`
     — matmuls contract over K, P x P solves), picked at TRACE time from
     the chunk's static shape; 0 disables.
 
     Returns ``fn(Y, T, rows, idx_pad, valid) -> T`` (jitted; T donated).
     """
-    from .. import config
     from ..ops.als import get_solver
 
     mesh = mesh_ctx.mesh
@@ -279,10 +277,7 @@ def sharded_wmf_chunk(mesh_ctx, weight: float, weight_decay: float,
 
         def device_chunk(Y_s, T_s, rows_rep, idx_loc, valid_loc):
             eye = jnp.eye(K, dtype=Y_s.dtype)
-            A0 = jax.lax.psum(
-                jnp.matmul(Y_s.T, Y_s,
-                           preferred_element_type=jnp.float32),
-                ROW_AXIS) + weight_decay * eye
+            A0 = jax.lax.psum(gramian(Y_s), ROW_AXIS) + weight_decay * eye
             flat_all = jax.lax.all_gather(idx_loc.reshape(-1), ROW_AXIS,
                                           tiled=True)
             sub = _resolve_rows(Y_s, flat_all, rpd_y).reshape(Cn, Pp, -1)
@@ -298,7 +293,7 @@ def sharded_wmf_chunk(mesh_ctx, weight: float, weight_decay: float,
             else:
                 A = A0[None] + (w - 1.0) * jnp.einsum(
                     "cpk,cpl->ckl", sub, sub,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32, precision=HIGHEST)
                 b = w * jnp.sum(sub, axis=1)
                 x = get_solver(solver)(A, b)
                 nonempty = jnp.any(valid_loc, axis=1, keepdims=True)
@@ -396,8 +391,7 @@ def sharded_expomf_chunk(mesh_ctx, lam_y: float, weight_decay: float,
                          mu_axis: str, num_real_rows: int,
                          num_real_cols: int):
     """Explicit shard_map ExpoMF E+M chunk — the multi-device analogue of
-    ``models.expomf._expomf_chunk`` (the last trainer without a sharded
-    path, VERDICT r3 #6).
+    ``models.expomf._expomf_chunk``.
 
     The reference densifies the U x I Exposure matrix and pranges over
     rows (`/root/reference/cymf/expomf.pyx:111,165-204`); the single-
@@ -452,7 +446,8 @@ def sharded_expomf_chunk(mesh_ctx, lam_y: float, weight_decay: float,
 
             # 2. local E block [C, rpd_o] (expomf.pyx:134-137)
             S = jnp.matmul(w_rows, Eoth_s.T,
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=HIGHEST)
             nn = pref * jnp.exp(-lam * jnp.square(S) / 2.0)
             if mu_axis == "col":
                 mu_b = mu_s[None, :]
@@ -481,7 +476,7 @@ def sharded_expomf_chunk(mesh_ctx, lam_y: float, weight_decay: float,
             # the chunk rows it solves (same C-order as idx_loc)
             A_part = lam * jnp.einsum(
                 "ci,ik,il->ckl", E, Y_s, Y_s,
-                preferred_element_type=jnp.float32)
+                preferred_element_type=jnp.float32, precision=HIGHEST)
             A_loc = jax.lax.psum_scatter(
                 A_part, ROW_AXIS, scatter_dimension=0, tiled=True)
             A_loc = A_loc + ridge * eye[None]
@@ -627,347 +622,3 @@ def sharded_glove_kfold_epoch(mesh_ctx, optimizer, x_max, alpha,
             n_valid, 1).astype(Wc.dtype)
 
     return jax.jit(epoch, donate_argnums=tuple(range(8)))
-
-
-def sharded_packed_bpr_epoch(mesh_ctx, opt_name, lr, weight_decay, K,
-                             rw, rh, wrows_w, wrows_h, interpret,
-                             precision="split"):
-    """Explicit shard_map PACKED BPR epoch — the multi-device form of the
-    flagship engine (``ops.packed_epoch.packed_bpr_epoch``, v4 pipeline),
-    so a mesh runs the fast fused-kernel path instead of falling back to
-    the XLA batch engine (measured 39.9M vs 19.5M int/s per chip,
-    docs/PERF.md).
-
-    Partition (see ``ops.packed_epoch.shard_slices``): the packed W table
-    (the big one — users) is row-sharded; each step's u-sorted sample
-    stream splits into n CONTIGUOUS shard slices, so W gathers, the fused
-    sample kernel, the W-side windowed accumulation, and the W optimizer
-    pass are all fully local — zero W-side communication.  The logical H
-    table (items — the SMALL table in recommendation workloads, ~5x
-    smaller than W on the MovieLens family) is REPLICATED; each device
-    accumulates its slice's H gradients over the full catalog and ONE
-    ``psum`` of that (rh, 128) buffer per step merges them, after which
-    the (deterministic) H optimizer pass runs replicated.  Comm per step
-    is therefore a single item-table-sized all-reduce + a scalar loss —
-    the deliberate inverse of ``sharded_bpr_epoch``'s O(batch)
-    row-exchange discipline, trading a small-table collective for fully
-    local gathers and kernels (at ML-20M shapes: 13.8 MB/step on ICI vs
-    3 all_gathers + 3 psum_scatters of (B, 128) = ~200 MB/step).
-
-    The negative stream is drawn GLOBALLY on the host before slicing
-    (``prep_shard_epoch``), so the sample stream — and hence the fit —
-    is mesh-size-invariant up to float summation order.
-
-    Returns ``fn(Wp, Hp, ow, oh, u, i, si, rowsi, wini, j, mf, sj,
-    rowsj, winj, winw, n_valid)`` where Wp/ow are row-sharded
-    ``(rw, 128)`` trees, Hp/oh replicated ``(rh, 128)`` trees, and every
-    stream array carries a leading shard axis ``n`` (from
-    ``prep_shard_static`` / ``prep_shard_epoch``).
-    """
-    from ..ops import packed as pk
-    from ..ops.fused_sample import bpr_sample_phase, decorate
-    from ..ops.packed_epoch import (TILE, _fold_rows, _pad_lanes,
-                                    make_packed_optimizer)
-    from ..ops.sorted_accum import sorted_accum, sorted_accum_dual
-
-    mesh = mesh_ctx.mesh
-    n = mesh_ctx.num_devices
-    opt = make_packed_optimizer(opt_name, lr)
-    wd = float(weight_decay)
-    s = pk.num_slots(K)
-    cb = pk.count_base(K)
-    rw_l = rw // n
-    payb = jnp.arange(pk.LANES) < K
-    payf = payb.astype(jnp.float32)
-
-    def epoch(Wp, Hp, ow, oh, u, i, si, rowsi, wini, j, mf, sj, rowsj,
-              winj, winw, n_valid):
-
-        def device_epoch(Wp_l, Hp, ow_l, oh, u, i, si, rowsi, wini, j,
-                         mf, sj, rowsj, winj, winw):
-            # stream args arrive (1, S, ...) — drop the shard axis
-            u, i, si, rowsi, wini, j, mf, sj, rowsj, winj, winw = (
-                a[0] for a in (u, i, si, rowsi, wini, j, mf, sj, rowsj,
-                               winj, winw))
-
-            def step(carry, xs):
-                Wp_l, Hp, ow_l, oh, loss_acc = carry
-                u, i, si, rowsi, wi, j, mf, sj, rowsj, wj, ww = xs
-                mf = mf.astype(jnp.float32)
-                phys, slot = u // s, u % s
-                # local gathers: shard slices guarantee every sample's W
-                # row lives here (padding sentinel rw_l clamps, mask 0)
-                Du = decorate(Wp_l.at[jnp.minimum(phys, rw_l - 1)].get(
-                    indices_are_sorted=True, mode="promise_in_bounds"),
-                    slot, mf, K)
-                SW, Q, lossp = bpr_sample_phase(
-                    Du, Hp[i], Hp[j], K=K, wd=wd, interpret=interpret)
-                Aw = sorted_accum(
-                    _fold_rows(phys), SW, ww[0], ww[1], r_pad=rw_l,
-                    wrows=wrows_w, tile=TILE, interpret=interpret,
-                    precision=precision)
-                gw, nw = pk.split_counts(Aw, K)
-                nwE = pk.expand_counts(nw, K)
-                gbw = _pad_lanes(-gw + wd * nwE * Wp_l[:, :cb])
-                mw = _pad_lanes(nwE > 0)
-                Wp_l, ow_l = opt.update(Wp_l, ow_l, gbw, mw, K)
-
-                D = sorted_accum_dual(
-                    rowsi, Q[si], wi[0], wi[1], rowsj, Q[sj], wj[0],
-                    wj[1], r_pad=rh, neg_lanes=K, wrows=wrows_h,
-                    tile=TILE, interpret=interpret, precision=precision)
-                # THE collective: merge per-shard H gradients + counts
-                D = jax.lax.psum(D, ROW_AXIS)
-                loss_step = jax.lax.psum(lossp[0, 0], ROW_AXIS)
-                nh = D[:, K:K + 1]
-                gbh = (D + wd * nh * Hp) * payf
-                mh = (nh > 0) & payb
-                # replicated-deterministic H update (same psum'd inputs
-                # on every device -> shards stay bit-identical)
-                Hp, oh = opt.update(Hp, oh, gbh, mh, K)
-                return (Wp_l, Hp, ow_l, oh, loss_acc + loss_step), None
-
-            init = (Wp_l, Hp, ow_l, oh, jnp.zeros((), jnp.float32))
-            (Wp_l, Hp, ow_l, oh, loss), _ = jax.lax.scan(
-                step, init, (u, i, si, rowsi, wini, j, mf, sj, rowsj,
-                             winj, winw))
-            return Wp_l, Hp, ow_l, oh, loss
-
-        table = P(ROW_AXIS, None)
-        stream = P(ROW_AXIS)
-        rep = P()
-        fn = jax.shard_map(
-            device_epoch, mesh=mesh,
-            in_specs=(table, rep, table, rep) + (stream,) * 11,
-            out_specs=(table, rep, table, rep, rep),
-            check_vma=False)
-        Wp, Hp, ow, oh, loss = fn(Wp, Hp, ow, oh, u, i, si, rowsi, wini,
-                                  j, mf, sj, rowsj, winj, winw)
-        return Wp, Hp, ow, oh, loss / jnp.maximum(
-            n_valid, 1).astype(jnp.float32)
-
-    return jax.jit(epoch, donate_argnums=(0, 1, 2, 3))
-
-
-def sharded_packed_glove_epoch(mesh_ctx, lr, K, rw, rh, wrows_w, wrows_h,
-                               interpret, precision="split"):
-    """Explicit shard_map PACKED GloVe epoch — the multi-device form of
-    ``ops.glove_epoch.packed_glove_epoch``, partitioned exactly like
-    :func:`sharded_packed_bpr_epoch`: the packed augmented central table
-    is row-sharded with shard-contiguous sample slices (every central
-    gather, the fused sample kernel, the central accumulation and its
-    AdaGrad pass are fully local), the logical augmented context table is
-    replicated and merged with ONE ``(rh, 128)`` psum per step.  GloVe
-    has no per-epoch draws, so every stream (from
-    ``prep_glove_shard_static``) is static for the whole fit and the
-    fit is mesh-size-invariant up to float summation order.
-
-    Returns ``fn(Zc, Zx, oc, ox, c, x, mf, f, lc, sx, rowsx, winx,
-    winw, n_valid)`` where Zc/oc are row-sharded ``(rw, 128)`` trees,
-    Zx/ox replicated ``(rh, 128)`` trees, and every stream carries a
-    leading shard axis ``n``.
-    """
-    from ..ops import packed as pk
-    from ..ops.glove_epoch import decorate_x, glove_sample_phase
-    from ..ops.fused_sample import decorate
-    from ..ops.packed_epoch import (TILE, PackedAdaGrad, _fold_rows,
-                                    _pad_lanes)
-    from ..ops.sorted_accum import sorted_accum
-
-    mesh = mesh_ctx.mesh
-    n = mesh_ctx.num_devices
-    Kp = K + 2
-    opt = PackedAdaGrad(lr)
-    s = pk.num_slots(Kp)
-    cb = pk.count_base(Kp)
-    rw_l = rw // n
-    lane = jnp.arange(128)
-    freeze_c = jnp.pad(
-        ((lane[:cb] % Kp) != K + 1).astype(jnp.float32)[None, :],
-        ((0, 0), (0, 128 - cb)))
-    freeze_x = ((lane < Kp) & (lane != K)).astype(jnp.float32)[None, :]
-
-    def epoch(Zc, Zx, oc, ox, c, x, mf, f, lc, sx, rowsx, winx, winw,
-              n_valid):
-
-        def device_epoch(Zc_l, Zx, oc_l, ox, c, x, mf, f, lc, sx, rowsx,
-                         winx, winw):
-            c, x, mf, f, lc, sx, rowsx, winx, winw = (
-                a[0] for a in (c, x, mf, f, lc, sx, rowsx, winx, winw))
-
-            def step(carry, xs):
-                Zc_l, Zx, oc_l, ox, loss_acc = carry
-                c, x, mf, f, lc, sx, rowsx, wx, ww = xs
-                mf = mf.astype(jnp.float32)
-                phys, slot = c // s, c % s
-                Du = decorate(Zc_l.at[jnp.minimum(phys, rw_l - 1)].get(
-                    indices_are_sorted=True, mode="promise_in_bounds"),
-                    slot, mf, Kp)
-                Dx = decorate_x(Zx.at[x].get(mode="promise_in_bounds"),
-                                f, lc, Kp)
-                SW, Q, lossp = glove_sample_phase(Du, Dx, Kp=Kp,
-                                                  interpret=interpret)
-                Ac = sorted_accum(
-                    _fold_rows(phys), SW, ww[0], ww[1], r_pad=rw_l,
-                    wrows=wrows_w, tile=TILE, interpret=interpret,
-                    precision=precision)
-                gc, _ = pk.split_counts(Ac, Kp)
-                Zc_l, oc_l = opt.update(Zc_l, oc_l,
-                                        _pad_lanes(gc) * freeze_c,
-                                        None, Kp)
-                D = sorted_accum(
-                    rowsx, Q[sx], wx[0], wx[1], r_pad=rh, wrows=wrows_h,
-                    tile=TILE, interpret=interpret, precision=precision)
-                # THE collective: merge per-shard context gradients
-                D = jax.lax.psum(D, ROW_AXIS)
-                loss_step = jax.lax.psum(lossp[0, 0], ROW_AXIS)
-                # replicated-deterministic context update
-                Zx, ox = opt.update(Zx, ox, D * freeze_x, None, Kp)
-                return (Zc_l, Zx, oc_l, ox, loss_acc + loss_step), None
-
-            init = (Zc_l, Zx, oc_l, ox, jnp.zeros((), jnp.float32))
-            (Zc_l, Zx, oc_l, ox, loss), _ = jax.lax.scan(
-                step, init, (c, x, mf, f, lc, sx, rowsx, winx, winw))
-            return Zc_l, Zx, oc_l, ox, loss
-
-        table = P(ROW_AXIS, None)
-        stream = P(ROW_AXIS)
-        rep = P()
-        fn = jax.shard_map(
-            device_epoch, mesh=mesh,
-            in_specs=(table, rep, table, rep) + (stream,) * 9,
-            out_specs=(table, rep, table, rep, rep),
-            check_vma=False)
-        Zc, Zx, oc, ox, loss = fn(Zc, Zx, oc, ox, c, x, mf, f, lc, sx,
-                                  rowsx, winx, winw)
-        return Zc, Zx, oc, ox, loss / jnp.maximum(
-            n_valid, 1).astype(jnp.float32)
-
-    return jax.jit(epoch, donate_argnums=(0, 1, 2, 3))
-
-
-def sharded_wide_bpr_epoch(mesh_ctx, opt_name, lr, weight_decay, K,
-                           rw, rh, wrows, interpret, precision="split"):
-    """Explicit shard_map WIDE BPR epoch — the multi-device form of the
-    K >= 128 fused engine (``ops.wide_epoch.wide_bpr_epoch``), closing
-    BASELINE config 5's pod-slice path ("BPR on ML-20M, d=256,
-    row-sharded tables"): round-4's wide engine was single-device and
-    multi-device d >= 128 fits fell back to the sharded XLA epoch
-    (5.83M vs 8.96M int/s at d=256 on one chip, docs/PERF.md).
-
-    Partition mirrors :func:`sharded_packed_bpr_epoch` exactly: the wide
-    ``(rw, Kp)`` W table is row-sharded with shard-contiguous u-sorted
-    sample slices (W gathers, the windowed W accumulation and the W
-    optimizer pass are all fully local — zero W-side communication); the
-    wide H table is replicated, each device accumulates its slice's
-    H gradients over the full catalog with the dual-stream kernel, and
-    ONE ``psum`` of that ``(rh, Kp + 128)`` buffer per step merges them
-    (~27 MB/step over ICI at ML-20M d=256 — cheap next to the ~200
-    MB/step of the row-exchange XLA discipline), after which the
-    deterministic H optimizer pass runs replicated.  Negative streams
-    are drawn GLOBALLY before slicing (``prep_shard_epoch``), so fits
-    are mesh-size-invariant up to float summation order — the sharded
-    analogue of the reference's Hogwild loop
-    (`/root/reference/cymf/bpr.pyx:162-169`) at d >= 128.
-
-    Returns ``fn(W, H, ow, oh, u, rowsu, winw, i, si, rowsi, wini, j,
-    mf, sj, rowsj, winj, mi, mj, n_valid)`` where W/ow are row-sharded
-    ``(rw, Kp)`` trees, H/oh replicated ``(rh, Kp)`` trees, and every
-    stream array carries a leading shard axis ``n`` (from
-    ``ops.wide_epoch.prep_shard_static_wide`` / ``prep_shard_epoch`` +
-    ``wide_shard_masks``).
-    """
-    from ..ops.packed_epoch import TILE, make_packed_optimizer
-    from ..ops.sorted_accum import sorted_accum, sorted_accum_dual
-
-    mesh = mesh_ctx.mesh
-    n = mesh_ctx.num_devices
-    opt = make_packed_optimizer(opt_name, lr)
-    wd = jnp.float32(weight_decay)
-    rw_l = rw // n
-
-    def epoch(W, H, ow, oh, u, rowsu, winw, i, si, rowsi, wini, j, mf,
-              sj, rowsj, winj, mi, mj, n_valid):
-        Kp = W.shape[1]
-        lane = jnp.arange(Kp)
-        payf = (lane < K).astype(jnp.float32)[None, :]
-        payb = (lane < K)[None, :]
-
-        def device_epoch(W_l, H, ow_l, oh, u, rowsu, winw, i, si, rowsi,
-                         wini, j, mf, sj, rowsj, winj, mi, mj):
-            # stream args arrive (1, S, ...) — drop the shard axis
-            (u, rowsu, winw, i, si, rowsi, wini, j, mf, sj, rowsj, winj,
-             mi, mj) = (a[0] for a in (u, rowsu, winw, i, si, rowsi,
-                                       wini, j, mf, sj, rowsj, winj, mi,
-                                       mj))
-
-            def step(carry, xs):
-                W_l, H, ow_l, oh, loss_acc = carry
-                (u, rowsu, ww, i, si, rowsi, wi, j, mf, sj, rowsj, wj,
-                 mi, mj) = xs
-                mfold = mf.reshape(rowsu.shape)
-                # masked/padding samples -> sentinel rows (no window)
-                rowsu_m = jnp.where(mfold > 0, rowsu, rw_l)
-                rowsi_m = jnp.where(mi > 0, rowsi, rh)
-                rowsj_m = jnp.where(mj > 0, rowsj, rh)
-                mff = mf.astype(jnp.float32)
-
-                # local gather: shard slices guarantee every sample's W
-                # row lives here (sentinel rw_l clamps, mask 0)
-                wu = W_l.at[jnp.minimum(u, rw_l - 1)].get(
-                    indices_are_sorted=True, mode="promise_in_bounds")
-                hi, hj = H[i], H[j]
-                x = jnp.sum(wu * (hi - hj), axis=1, keepdims=True)
-                sigm = jax.nn.sigmoid(-x) * mff[:, None]
-                SW = sigm * (hi - hj)
-                Q = sigm * wu
-                l2 = jnp.sum(wu * wu + hi * hi + hj * hj, axis=1)
-                loss_p = jnp.sum(
-                    (-jax.nn.log_sigmoid(x[:, 0]) + wd * l2) * mff)
-
-                Aw = sorted_accum(
-                    rowsu_m, SW, ww[0], ww[1], r_pad=rw_l, wrows=wrows,
-                    tile=TILE, interpret=interpret, precision=precision,
-                    count_lanes=True)
-                nw = Aw[:, Kp:Kp + 1]
-                W_l, ow_l = opt.update(
-                    W_l, ow_l, (-Aw[:, :Kp] + wd * nw * W_l) * payf,
-                    (nw > 0) & payb, K)
-
-                D = sorted_accum_dual(
-                    rowsi_m, Q[si], wi[0], wi[1], rowsj_m, Q[sj], wj[0],
-                    wj[1], r_pad=rh, neg_lanes=Kp, wrows=wrows,
-                    tile=TILE, interpret=interpret, precision=precision,
-                    count_lanes=True)
-                # THE collective: merge per-shard H gradients + counts
-                D = jax.lax.psum(D, ROW_AXIS)
-                loss_step = jax.lax.psum(loss_p, ROW_AXIS)
-                nh = D[:, Kp:Kp + 1]
-                # replicated-deterministic H update (same psum'd inputs
-                # on every device -> shards stay bit-identical)
-                H, oh = opt.update(
-                    H, oh, (D[:, :Kp] + wd * nh * H) * payf,
-                    (nh > 0) & payb, K)
-                return (W_l, H, ow_l, oh, loss_acc + loss_step), None
-
-            init = (W_l, H, ow_l, oh, jnp.zeros((), jnp.float32))
-            (W_l, H, ow_l, oh, loss), _ = jax.lax.scan(
-                step, init, (u, rowsu, winw, i, si, rowsi, wini, j, mf,
-                             sj, rowsj, winj, mi, mj))
-            return W_l, H, ow_l, oh, loss
-
-        table = P(ROW_AXIS, None)
-        stream = P(ROW_AXIS)
-        rep = P()
-        fn = jax.shard_map(
-            device_epoch, mesh=mesh,
-            in_specs=(table, rep, table, rep) + (stream,) * 14,
-            out_specs=(table, rep, table, rep, rep),
-            check_vma=False)
-        W, H, ow, oh, loss = fn(W, H, ow, oh, u, rowsu, winw, i, si,
-                                rowsi, wini, j, mf, sj, rowsj, winj, mi,
-                                mj)
-        return W, H, ow, oh, loss / jnp.maximum(
-            n_valid, 1).astype(jnp.float32)
-
-    return jax.jit(epoch, donate_argnums=(0, 1, 2, 3))

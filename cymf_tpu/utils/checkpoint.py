@@ -30,6 +30,7 @@ import numpy as np
 
 _EPOCH_KEY = "__epoch__"
 _META_PREFIX = "__meta__/"
+_ROWS_PREFIX = "__rows__/"
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
@@ -41,13 +42,26 @@ def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     return flat
 
 
-def save_checkpoint(path: str, state: Any, epoch: int,
-                    meta: Dict[str, Any] | None = None) -> None:
-    """Atomically write ``state`` (a pytree of arrays) + epoch to ``path``."""
-    flat = _flatten(state)
+def _add_meta(flat: Dict[str, np.ndarray], epoch: int,
+              meta: Dict[str, Any] | None,
+              rows: Dict[str, int] | None) -> None:
     flat[_EPOCH_KEY] = np.asarray(epoch, np.int64)
     for k, v in (meta or {}).items():
         flat[_META_PREFIX + k] = np.asarray(v)
+    for k, n in (rows or {}).items():
+        flat[_ROWS_PREFIX + k] = np.asarray(n, np.int64)
+
+
+def save_checkpoint(path: str, state: Any, epoch: int,
+                    meta: Dict[str, Any] | None = None,
+                    rows: Dict[str, int] | None = None) -> None:
+    """Atomically write ``state`` (a pytree of arrays) + epoch to ``path``.
+
+    ``rows`` maps a top-level key of ``state`` to the number of real rows
+    its leaves hold (the rest is mesh padding); :func:`load_checkpoint`
+    needs it to resume under another row padding."""
+    flat = _flatten(state)
+    _add_meta(flat, epoch, meta, rows)
     _write_atomic(path, flat)
 
 
@@ -89,12 +103,11 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, path: str, state: Any, epoch: int,
-             meta: Dict[str, Any] | None = None) -> None:
+             meta: Dict[str, Any] | None = None,
+             rows: Dict[str, int] | None = None) -> None:
         self._join()
         flat = {k: np.asarray(v) for k, v in _flatten(state).items()}
-        flat[_EPOCH_KEY] = np.asarray(epoch, np.int64)
-        for k, v in (meta or {}).items():
-            flat[_META_PREFIX + k] = np.asarray(v)
+        _add_meta(flat, epoch, meta, rows)
 
         def run() -> None:
             try:
@@ -109,17 +122,50 @@ class AsyncCheckpointer:
         self._join()
 
 
-def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
+# optimizer-state leaf prefixes of the lane-packed and wide-row engines,
+# which are gone; their checkpoints store state in layouts nothing reads
+_REMOVED_SCHEMAS = {"owp": "packed", "ohp": "packed", "oww": "wide",
+                    "ohw": "wide"}
+
+
+def load_checkpoint(path: str, like: Any,
+                    rows: Dict[str, int] | None = None
+                    ) -> Tuple[Any, int, Dict[str, Any]]:
     """Load a checkpoint into the structure of ``like`` (same pytree).
 
     Returns (state, epoch, meta).  Leaves keep ``like``'s shardings when
     ``like`` holds jax arrays (device_put with matching sharding).
+
+    ``rows`` maps top-level keys of ``like`` to their real row counts, as
+    :func:`save_checkpoint` took them.  Where both the checkpoint and
+    ``rows`` name a key, the counts must agree: a checkpoint written for
+    another matrix raises.  A leaf whose row count alone differs (written
+    under another device count, hence another row padding) loads when its
+    key's real count is recorded on both sides: the real rows come from
+    the checkpoint, the padding rows keep ``like``'s values.  Any other
+    shape difference raises.
     """
+    rows = rows or {}
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     epoch = int(flat.pop(_EPOCH_KEY, -1))
     meta = {k[len(_META_PREFIX):]: flat.pop(k)
             for k in list(flat) if k.startswith(_META_PREFIX)}
+    saved_rows = {k[len(_ROWS_PREFIX):]: int(flat.pop(k))
+                  for k in list(flat) if k.startswith(_ROWS_PREFIX)}
+    for k in flat:
+        schema = _REMOVED_SCHEMAS.get(k.split("/", 1)[0])
+        if schema is not None:
+            raise ValueError(
+                f"checkpoint {path!r} was written in the {schema!r} "
+                f"engine's schema (leaf {k!r}); that engine no longer "
+                "exists, so its optimizer state cannot be resumed")
+    for k, n in rows.items():
+        if k in saved_rows and saved_rows[k] != n:
+            raise ValueError(
+                f"checkpoint {path!r} holds {saved_rows[k]} real rows of "
+                f"{k!r}, this fit has {n}: it was written for another "
+                "matrix")
 
     leaves_like, treedef = jax.tree_util.tree_flatten_with_path(like)
     leaves = []
@@ -131,12 +177,19 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
         arr = flat[key]
         like_shape = tuple(np.shape(leaf))
         if tuple(arr.shape) != like_shape:
-            raise ValueError(
-                f"checkpoint leaf {key!r} has shape {tuple(arr.shape)}, "
-                f"expected {like_shape} — written by a different "
-                "schema/mesh padding.  Engines that support cross-layout "
-                "resume (BPR) convert through their own raw-load path; "
-                "this loader requires exact shapes so drift fails loudly.")
+            top = key.split("/", 1)[0]
+            n = saved_rows.get(top)
+            if (n is None or n != rows.get(top)
+                    or arr.ndim != len(like_shape) or arr.ndim == 0
+                    or arr.shape[1:] != like_shape[1:]
+                    or min(arr.shape[0], like_shape[0]) < n):
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape "
+                    f"{tuple(arr.shape)}, expected {like_shape}: only the "
+                    "padding rows of a leaf with recorded real rows may "
+                    "differ")
+            pad = np.asarray(leaf)[n:]
+            arr = np.concatenate([arr[:n].astype(pad.dtype), pad])
         if hasattr(leaf, "sharding"):
             arr = jax.device_put(arr.astype(leaf.dtype), leaf.sharding)
         leaves.append(arr)

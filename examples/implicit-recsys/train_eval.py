@@ -15,8 +15,7 @@ import cymf_tpu as cymf
 MODELS = {
     "bpr": lambda a: cymf.BPR(
         num_components=a.num_components, learning_rate=a.learning_rate,
-        weight_decay=a.weight_decay, batch_size=a.batch_size,
-        engine=a.engine, neg_pool=a.neg_pool),
+        weight_decay=a.weight_decay, batch_size=a.batch_size),
     "wmf": lambda a: cymf.WMF(
         num_components=a.num_components, weight_decay=a.weight_decay,
         weight=a.weight),
@@ -26,7 +25,7 @@ MODELS = {
     "relmf": lambda a: cymf.RelMF(
         num_components=a.num_components, learning_rate=a.learning_rate,
         weight_decay=a.weight_decay, clip_value=a.clip_value,
-        batch_size=a.batch_size, packed=getattr(a, "packed", "auto")),
+        batch_size=a.batch_size),
 }
 
 
@@ -42,15 +41,6 @@ def main():
     p.add_argument("--lam_y", type=float, default=1.0)
     p.add_argument("--clip_value", type=float, default=0.1)
     p.add_argument("--batch_size", type=int, default=1024)
-    p.add_argument("--engine", default="xla", choices=("xla", "pallas"))
-    p.add_argument("--packed", default="auto", choices=("auto", "on",
-                                                        "off"),
-                   help="RelMF only: packed fused engine (auto picks it "
-                        "on a single-device TPU for binarized fits)")
-    p.add_argument("--neg_pool", type=int, default=0,
-                   help="BPR only: draw each step's negatives from a "
-                        "shared pool of this many items (multiple of "
-                        "128; 0 = exact per-sample draws)")
     p.add_argument("--num_threads", type=int, default=8)
     p.add_argument("--unbiased_eval", action="store_true",
                    help="evaluate with the IPS (unbiased) metrics")

@@ -25,9 +25,6 @@ def main():
     p.add_argument("--x_max", type=float, default=10.0)
     p.add_argument("--threads", type=int, default=8)
     p.add_argument("--batch_size", type=int, default=131072)
-    p.add_argument("--packed", default="auto", choices=("auto", "on", "off"),
-                   help="packed fused engine (single-TPU fast path; "
-                        "auto picks it on TPU)")
     p.add_argument("--out", default="./vectors.txt")
     args = p.parse_args()
 
@@ -39,8 +36,7 @@ def main():
 
     model = cymf.GloVe(num_components=args.num_components,
                        learning_rate=args.lr, alpha=args.alpha,
-                       x_max=args.x_max, batch_size=args.batch_size,
-                       packed=args.packed)
+                       x_max=args.x_max, batch_size=args.batch_size)
     model.fit(corpus.X, num_epochs=args.num_epochs,
               num_threads=args.threads, verbose=True)
     model.save_word2vec_format(args.out, corpus.i2w)

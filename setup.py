@@ -16,20 +16,23 @@ version = re.search(r'__version__ = "([^"]+)"', init).group(1)
 setup(
     name="cymf-tpu",
     version=version,
-    description=("TPU-native matrix-factorization framework "
-                 "(JAX/XLA/pjit/Pallas)"),
+    description="JAX matrix-factorization framework (BPR, WMF, ExpoMF, "
+                "RelMF, GloVe) for the GPU",
     packages=find_packages(exclude=("tests",)),
     ext_modules=[
         Extension(
             "cymf_tpu.native._native",
             sources=["cymf_tpu/native/_native.cpp"],
-            extra_compile_args=["-O3", "-std=c++17", "-fopenmp"],
-            extra_link_args=["-fopenmp"],
+            extra_compile_args=["-O3", "-std=c++17"],
             optional=True,
         ),
     ],
-    install_requires=[
-        "jax", "numpy", "scipy", "scikit-learn", "pandas", "tqdm",
-    ],
+    install_requires=["jax", "numpy", "scipy"],
+    extras_require={
+        # file-based dataset loaders (MovieLens, Yahoo R3) and the
+        # progress bar; the trainers and synthetic data need neither
+        "datasets": ["scikit-learn", "pandas"],
+        "progress": ["tqdm"],
+    },
     python_requires=">=3.10",
 )

@@ -79,127 +79,3 @@ def test_bpr_invalid_input():
         BPR().fit(None)
     with pytest.raises(ValueError):
         BPR().fit("not a matrix")
-
-
-def test_bpr_device_prep_quality_and_resume(monkeypatch):
-    """CYMF_TPU_BPR_PREP=device (round 5): the packed engine draws,
-    rejects and sorts negatives INSIDE the jitted scan — quality matches
-    the host-prep engine (different, equally uniform stream) and
-    checkpoints resume deterministically."""
-    import jax
-
-    import cymf_tpu
-    from cymf_tpu.dataset import SyntheticImplicitDataset
-    from cymf_tpu.parallel import MeshContext, use_mesh
-
-    d = SyntheticImplicitDataset(num_user=300, num_item=200, rank=5,
-                                 density=0.08, seed=11)
-    ev = cymf_tpu.AoaEvaluator(d.test, d.train, metrics=["DCG"], k=5)
-    kw = dict(num_components=10, learning_rate=0.02, batch_size=2048,
-              packed="on")
-    with use_mesh(MeshContext.create(jax.devices()[:1])):
-        m_host = cymf_tpu.BPR(**kw)
-        m_host.fit(d.train, num_epochs=8, verbose=False, seed=3)
-        dcg_host = ev.evaluate(m_host.W, m_host.H)["DCG@5"]
-
-        monkeypatch.setenv("CYMF_TPU_BPR_PREP", "device")
-        m_dev = cymf_tpu.BPR(**kw)
-        m_dev.fit(d.train, num_epochs=8, verbose=False, seed=3)
-        assert m_dev.prep_backend_ == "device-threefry"
-        dcg_dev = ev.evaluate(m_dev.W, m_dev.H)["DCG@5"]
-        assert dcg_dev > 0.8 * dcg_host, (dcg_dev, dcg_host)
-
-        # determinism: same seed -> identical tables
-        m_dev2 = cymf_tpu.BPR(**kw)
-        m_dev2.fit(d.train, num_epochs=8, verbose=False, seed=3)
-        np.testing.assert_array_equal(m_dev.W, m_dev2.W)
-
-        # invalid knob raises
-        monkeypatch.setenv("CYMF_TPU_BPR_PREP", "sometimes")
-        with pytest.raises(ValueError, match="BPR_PREP"):
-            cymf_tpu.BPR(**kw).fit(d.train, num_epochs=1, verbose=False)
-
-
-def test_bpr_device_j_epoch_matches_host_epoch_on_same_streams():
-    """packed_bpr_epoch_device_j == packed_bpr_epoch (v4) when the host
-    engine is fed the device engine's exact negative stream — pins the
-    twin step bodies together (round-5 review)."""
-    import jax
-    import jax.numpy as jnp
-    from scipy import sparse
-
-    from cymf_tpu.ops import packed as pk
-    from cymf_tpu.ops.hashset import build_pair_hashset, hashset_contains
-    from cymf_tpu.ops.packed_epoch import (_sorted_side,
-                                           make_packed_optimizer,
-                                           packed_bpr_epoch,
-                                           packed_bpr_epoch_device_j,
-                                           prep_static, unpack_device)
-
-    rng = np.random.default_rng(4)
-    U, I, K, B = 300, 170, 8, 1024
-    wrows = 16
-    X = sparse.random(U, I, density=0.1, random_state=4, format="csr")
-    X.data[:] = 1.0
-    coo = X.tocoo()
-    hs = jax.tree_util.tree_map(
-        jnp.asarray, build_pair_hashset(coo.row, coo.col))
-    users, items = X.nonzero()
-    N = len(users)
-    S = -(-N // B)
-    pad = S * B - N
-    u2 = np.concatenate([users.astype(np.int32),
-                         np.full(pad, np.int32(2**31 - 1))])
-    i2 = np.concatenate([items.astype(np.int32),
-                         np.zeros(pad, np.int32)]).reshape(S, B)
-    u2 = u2.reshape(S, B)
-    order = np.argsort(u2, axis=1, kind="stable")
-    u2 = np.take_along_axis(u2, order, axis=1)
-    i2 = np.take_along_axis(i2, order, axis=1)
-
-    rw = pk.packed_rows(U, K, multiple=wrows)
-    rh = pk.logical_rows(I, multiple=wrows)
-    winw, wstart, si, rowsi, wini, bcs, bcn, _ = prep_static(
-        u2, i2, K, rw, rh, wrows, wrows)
-    W0 = (rng.normal(size=(U, K)) * 0.1).astype(np.float32)
-    H0 = (rng.normal(size=(I, K)) * 0.1).astype(np.float32)
-    Wp = jnp.asarray(pk.pack_array(W0, K, multiple=wrows))
-    Hp = jnp.asarray(pk.pack_logical(H0, K, multiple=wrows))
-    opt = make_packed_optimizer("adam", 0.02)
-    key = jax.random.PRNGKey(9)
-    nv = jnp.asarray(N, jnp.int32)
-    com = dict(opt_name="adam", lr=0.02, weight_decay=0.01, K=K, rw=rw,
-               rh=rh, wrows_w=wrows, wrows_h=wrows, interpret=True)
-
-    Wd, Hd, _, _, ld = packed_bpr_epoch_device_j(
-        jnp.array(Wp), jnp.array(Hp), opt.init(Wp), opt.init(Hp),
-        *(jnp.asarray(a) for a in (u2, i2, si, rowsi, wini, winw)),
-        hs, key, jnp.asarray(0, jnp.int32), nv, num_users=U,
-        num_items=I, **com)
-
-    # replicate the device negative draws on the host
-    j2 = np.empty((S, B), np.int32)
-    mask = np.empty((S, B), np.uint8)
-    for t in range(S):
-        kt = jax.random.fold_in(key, t)
-        j = np.asarray(jax.random.randint(kt, (B,), 0, I,
-                                          dtype=jnp.int32))
-        col = np.asarray(hashset_contains(hs, jnp.asarray(u2[t]),
-                                          jnp.asarray(j)))
-        j2[t] = j
-        mask[t] = ((u2[t].astype(np.int64) < U) & ~col).astype(np.uint8)
-    sj, rowsj, winj = _sorted_side(j2, rh, wrows, 1024)
-    Wh, Hh, _, _, lh = packed_bpr_epoch(
-        jnp.array(Wp), jnp.array(Hp), opt.init(Wp), opt.init(Hp),
-        *(jnp.asarray(a) for a in (u2, i2, si, rowsi, wini, j2,
-                                   mask.astype(np.float32), sj, rowsj,
-                                   winj, winw, wstart, bcs, bcn)),
-        nv, kernel_v=4, **com)
-
-    np.testing.assert_allclose(float(ld), float(lh), rtol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(unpack_device(Wd, K))[:U],
-        np.asarray(unpack_device(Wh, K))[:U], rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(Hd[:I, :K]),
-                               np.asarray(Hh[:I, :K]),
-                               rtol=2e-5, atol=2e-6)

@@ -114,9 +114,7 @@ def _fit_data(name, seed=4):
 
 @pytest.mark.parametrize("name", ["bpr", "relmf", "wmf", "expomf", "glove"])
 def test_resume_matches_uninterrupted(tmp_path, name):
-    """Round-1 VERDICT item 2: resume == uninterrupted for all 5 models
-    (RelMF's resume previously restored into a None state and silently
-    retrained from scratch)."""
+    """Resume == uninterrupted for all 5 models."""
     X = _fit_data(name)
     p = str(tmp_path / f"{name}.npz")
 
@@ -143,65 +141,19 @@ def test_resume_matches_uninterrupted(tmp_path, name):
         np.testing.assert_allclose(m3.mu, m1.mu, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("optimizer", ["adam", "adagrad"])
-@pytest.mark.parametrize("src,dst", [("on", "off"), ("off", "on")])
-def test_bpr_cross_engine_resume(tmp_path, src, dst, optimizer):
-    """A checkpoint written by one BPR engine resumes in the other.
-
-    The two engines store optimizer state in different layouts
-    (logical ``ow``/``oh`` vs packed ``owp``/``ohp``); resume converts.
-    Resuming with num_epochs == saved epochs runs zero extra epochs and
-    must reproduce the checkpointed tables exactly; one further epoch
-    must then train through the converted moments without error.
-    """
-    rng = np.random.default_rng(0)
-    X = sparse.random(120, 70, density=0.2, random_state=3, format="csr")
-    X.data[:] = 1.0
-    kw = dict(num_components=6, learning_rate=0.02, batch_size=128,
-              optimizer=optimizer)
-    p = str(tmp_path / f"ck_{src}_{optimizer}.npz")
-    m1 = BPR(packed=src, **kw)
-    m1.fit(X, num_epochs=2, verbose=False, seed=7, checkpoint_path=p)
-    W1, H1 = m1.W.copy(), m1.H.copy()
-
-    m2 = BPR(packed=dst, **kw)
-    m2.fit(X, num_epochs=2, verbose=False, seed=7, checkpoint_path=p,
-           resume=True)
-    np.testing.assert_allclose(m2.W, W1, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(m2.H, H1, rtol=1e-5, atol=1e-6)
-
-    m3 = BPR(packed=dst, **kw)
-    m3.fit(X, num_epochs=3, verbose=False, seed=7, checkpoint_path=p,
-           resume=True)
-    assert np.isfinite(m3.W).all() and np.isfinite(m3.H).all()
-    assert not np.allclose(m3.W, W1)  # the extra epoch trained
-
-
-def test_packed_on_validation():
-    """packed='on' rejects impossible configs instead of silently falling
-    back; K >= 128 is no longer impossible (the wide engine covers it)."""
-    with pytest.raises(ValueError):
-        BPR(num_components=8, packed="on", engine="pallas")
-    m = BPR(num_components=128, packed="on")  # -> wide fused engine
-    assert m._fused_engine(10_000) == "wide"
-    assert BPR(num_components=20, packed="on")._fused_engine(10_000) \
-        == "packed"
-
-
-@pytest.mark.parametrize("engine", ["off", "on"])
-def test_bpr_resume_across_row_padding(tmp_path, engine):
+def test_bpr_resume_across_row_padding(tmp_path):
     """A checkpoint whose leaves carry a different row padding (written
-    under another mesh/device count) resumes: tables AND same-engine
-    optimizer leaves slice-and-repad instead of erroring."""
+    under another mesh/device count) resumes: tables AND optimizer
+    leaves slice-and-repad instead of erroring."""
     X = sparse.random(120, 70, density=0.2, random_state=3, format="csr")
     X.data[:] = 1.0
     kw = dict(num_components=6, learning_rate=0.02, batch_size=128,
               optimizer="adam")
     p = str(tmp_path / "ck.npz")
-    m1 = BPR(packed=engine, **kw)
+    m1 = BPR(**kw)
     m1.fit(X, num_epochs=2, verbose=False, seed=7, checkpoint_path=p)
 
-    m2 = BPR(packed=engine, **kw)
+    m2 = BPR(**kw)
     m2.fit(X, num_epochs=3, verbose=False, seed=7, checkpoint_path=str(
         tmp_path / "c2.npz"), resume=False)
 
@@ -213,7 +165,7 @@ def test_bpr_resume_across_row_padding(tmp_path, engine):
             flat[k] = np.pad(v, ((0, 64), (0, 0)))
     np.savez(p, **flat)
 
-    m3 = BPR(packed=engine, **kw)
+    m3 = BPR(**kw)
     m3.fit(X, num_epochs=3, verbose=False, seed=7, checkpoint_path=p,
            resume=True)
     # epoch 3 trained through the repadded moments identically to an
@@ -222,82 +174,90 @@ def test_bpr_resume_across_row_padding(tmp_path, engine):
     np.testing.assert_allclose(m3.H, m2.H, rtol=1e-5, atol=1e-6)
 
 
-def test_packed_on_multidevice_runs_sharded():
-    """packed='on' on a multi-device mesh runs the SHARDED packed engine
-    (round 4) — no single-device fallback warning, finite result, and the
-    published state uses the packed optimizer schema."""
-    import warnings
-
-    import jax
-    if len(jax.devices()) < 2:
-        pytest.skip("needs a multi-device mesh")
-    X = sparse.random(96, 64, density=0.2, random_state=0, format="csr")
-    X.data[:] = 1.0
-    m = BPR(num_components=6, batch_size=128, packed="on")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        m.fit(X, num_epochs=1, verbose=False)
-    assert np.isfinite(m.last_loss)
-    assert m.packed_kernel_ == 4 and np.isfinite(m.W).all()
-
 def test_load_shape_mismatch_raises(tmp_path):
     """Schema drift (a leaf stored under a different shape) fails loudly
-    instead of silently carrying mismatched arrays (round-4 advice)."""
+    instead of silently carrying mismatched arrays."""
     p = str(tmp_path / "ck.npz")
     save_checkpoint(p, {"b": jnp.zeros((1, 1))}, epoch=0)
     with pytest.raises(ValueError, match="shape"):
         load_checkpoint(p, {"b": jnp.zeros((1,))})
 
 
-def test_shard_slices_warns_on_degenerate_skew():
-    """One shard owning ~all of a step's samples pads every shard to ~B;
-    shard_slices surfaces that instead of silently multiplying compute."""
-    import warnings
+@pytest.mark.parametrize("src,dst", [(1, 4), (4, 1)])
+@pytest.mark.parametrize("name", ["bpr", "relmf", "wmf", "expomf", "glove"])
+def test_resume_across_device_count(tmp_path, name, src, dst):
+    """A checkpoint written on one mesh resumes on another: the row
+    padding of every table and optimizer leaf differs (50 items pad to
+    52 on 4 devices) and is sliced or extended on load."""
+    import jax
 
-    from cymf_tpu.ops.packed_epoch import shard_slices
+    from cymf_tpu.parallel import MeshContext, use_mesh
 
-    B, K, n = 8192, 6, 4
-    from cymf_tpu.ops import packed as pk
-    s = pk.num_slots(K)
-    rw = 8 * n  # 8 packed rows per shard
-    # every sample lands in shard 0's row range -> max skew
-    u2 = np.zeros((2, B), np.int64)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        starts, counts, Bd = shard_slices(u2, K, rw, n, tile=128)
-    assert Bd == B and any("shard owns" in str(x.message) for x in w)
-    # balanced streams stay silent
-    u_bal = np.sort(np.arange(2 * B).reshape(2, B) % (rw * s), axis=1)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        shard_slices(u_bal.astype(np.int64), K, rw, n, tile=128)
-    assert not w
+    X = _fit_data(name)
+    if name == "glove":
+        X = X[:42, :42]
+    p = str(tmp_path / f"{name}.npz")
+
+    def fit(n_dev, epochs, **kw):
+        np.random.seed(99)
+        with use_mesh(MeshContext.create(jax.devices()[:n_dev])):
+            m = _make_model(name)
+            m.fit(X, num_epochs=epochs, verbose=False, **kw)
+        return m
+
+    ref = fit(dst, 4)
+    fit(src, 2, checkpoint_path=p)
+    got = fit(dst, 4, checkpoint_path=p, resume=True)
+    np.testing.assert_allclose(got.W, ref.W, rtol=1e-4, atol=1e-4)
+    if name == "glove":
+        np.testing.assert_allclose(got.bias, ref.bias, rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        np.testing.assert_allclose(got.H, ref.H, rtol=1e-4, atol=1e-4)
 
 
-def test_bpr_wide_cross_engine_resume(tmp_path):
-    """An XLA-engine checkpoint resumes in the WIDE engine (K >= 128,
-    logical 'ow' leaves -> wide-layout 'oww') and vice versa — the
-    K >= 128 analogue of the packed cross-engine converters."""
-    X = sparse.random(200, 120, density=0.12, random_state=5,
-                      format="csr")
-    X.data[:] = 1.0
-    kw = dict(num_components=128, learning_rate=0.02, batch_size=1024,
-              optimizer="adam")
-    p = str(tmp_path / "cw.npz")
+@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("name", ["bpr", "relmf", "wmf", "expomf", "glove"])
+def test_resume_for_another_matrix_raises(tmp_path, name, n_dev):
+    """A checkpoint written for a matrix with one more row (users, or
+    words for GloVe) does not resume: its real row count differs, even
+    where the padded shapes agree (80 and 79 users both pad to 80 on 4
+    devices)."""
+    import jax
 
-    # XLA checkpoint -> wide resume trains on and stays finite
-    m_x = BPR(packed="off", **kw)
-    m_x.fit(X, num_epochs=2, verbose=False, seed=7, checkpoint_path=p)
-    m_w = BPR(packed="on", **kw)
-    m_w.fit(X, num_epochs=3, verbose=False, seed=7, checkpoint_path=p,
-            resume=True)
-    assert np.isfinite(m_w.W).all() and not np.allclose(m_w.W, m_x.W)
+    from cymf_tpu.parallel import MeshContext, use_mesh
 
-    # wide checkpoint -> XLA resume
-    p2 = str(tmp_path / "cw2.npz")
-    m_w2 = BPR(packed="on", **kw)
-    m_w2.fit(X, num_epochs=2, verbose=False, seed=7, checkpoint_path=p2)
-    m_x2 = BPR(packed="off", **kw)
-    m_x2.fit(X, num_epochs=3, verbose=False, seed=7, checkpoint_path=p2,
-             resume=True)
-    assert np.isfinite(m_x2.W).all() and not np.allclose(m_x2.W, m_w2.W)
+    X = _fit_data(name)
+    if name == "glove":
+        X = X[:42, :42]
+    small = X[:-1, :-1] if name == "glove" else X[:-1]
+    p = str(tmp_path / f"{name}.npz")
+    with use_mesh(MeshContext.create(jax.devices()[:n_dev])):
+        np.random.seed(99)
+        _make_model(name).fit(X, num_epochs=1, verbose=False,
+                              checkpoint_path=p)
+        np.random.seed(99)
+        with pytest.raises(ValueError, match="another matrix"):
+            _make_model(name).fit(small, num_epochs=2, verbose=False,
+                                  checkpoint_path=p, resume=True)
+
+
+def test_load_checks_recorded_rows(tmp_path):
+    """Row padding may differ only where both sides record the real rows,
+    and only in padding rows."""
+    p = str(tmp_path / "ck.npz")
+    W = np.arange(12.0).reshape(6, 2)
+    save_checkpoint(p, {"W": W}, epoch=3, rows={"W": 5})
+    like = {"W": jnp.full((8, 2), -1.0)}
+    state, epoch, meta = load_checkpoint(p, like, rows={"W": 5})
+    np.testing.assert_array_equal(np.asarray(state["W"])[:5], W[:5])
+    np.testing.assert_array_equal(np.asarray(state["W"])[5:], -1.0)
+    assert epoch == 3 and meta == {}
+    with pytest.raises(ValueError, match="another matrix"):
+        load_checkpoint(p, {"W": jnp.zeros((6, 2))}, rows={"W": 6})
+    with pytest.raises(ValueError, match="padding rows"):
+        load_checkpoint(p, like)  # no real count to check against
+    q = str(tmp_path / "legacy.npz")
+    save_checkpoint(q, {"W": W}, epoch=0)  # no rows recorded
+    with pytest.raises(ValueError, match="padding rows"):
+        load_checkpoint(q, like, rows={"W": 5})

@@ -134,7 +134,7 @@ def test_negatives_never_collide_with_positives():
 
 
 def test_exact_negative_count_on_dense_matrix():
-    """VERDICT round-1 item 4: the reference rejection-samples *until* it has
+    """The reference rejection-samples *until* it has
     exactly num_negatives valid negatives (evaluator.pyx:106-111).  On a 90%-
     dense positive matrix a single oversampled draw would fall short; the
     refill loop must deliver the exact count, all non-positive."""

@@ -23,8 +23,7 @@ def test_train_eval_models_buildable():
     import argparse
     ns = argparse.Namespace(
         num_components=8, learning_rate=0.01, weight_decay=0.01,
-        weight=10.0, lam_y=1.0, clip_value=0.1, batch_size=256,
-        engine="xla", neg_pool=0)
+        weight=10.0, lam_y=1.0, clip_value=0.1, batch_size=256)
     for name, build in mod.MODELS.items():
         model = build(ns)
         assert model.num_components == 8, name

@@ -166,152 +166,3 @@ def test_glove_bias_modes_equivalent_quality():
 def test_glove_invalid_bias_mode():
     with pytest.raises(ValueError):
         GloVe(bias_mode="magic")
-
-
-def test_glove_packed_matches_xla_engine():
-    """The packed fused engine (lane-packed augmented central table,
-    logical context table, fused sample kernel + windowed accumulation —
-    `ops/glove_epoch.py`) must match the XLA fused-bias engine on the
-    SAME stream: identical shuffle (ambient seed), identical batch
-    composition (1024-multiple batch on both), same AdaGrad semantics."""
-    X = _toy_cooc(V=120, seed=3)
-
-    np.random.seed(11)
-    m0 = GloVe(num_components=8, batch_size=1024, packed="off")
-    m0.fit(X, num_epochs=4)
-
-    np.random.seed(11)
-    m1 = GloVe(num_components=8, batch_size=1024, packed="on")
-    m1.fit(X, num_epochs=4)
-
-    np.testing.assert_allclose(m1.last_loss, m0.last_loss, rtol=1e-4)
-    np.testing.assert_allclose(m1.W_central, m0.W_central,
-                               rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(m1.W_context, m0.W_context,
-                               rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(m1.bias, m0.bias, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(m1.context_bias, m0.context_bias,
-                               rtol=2e-3, atol=2e-5)
-
-
-def test_glove_packed_constant_columns_frozen():
-    """The augmented layout's constant-1 columns must survive training
-    bit-exactly (their gradient lanes are zeroed; AdaGrad ones-init makes
-    zero gradient a no-op) — checked at the ops level on the raw packed
-    tables after one epoch."""
-    import jax.numpy as jnp
-
-    from cymf_tpu.ops import packed as pk
-    from cymf_tpu.ops.glove_epoch import (packed_glove_epoch,
-                                          prep_glove_static)
-    from cymf_tpu.ops.packed_epoch import PackedAdaGrad
-
-    rng = np.random.default_rng(0)
-    V1, V2, K = 90, 70, 8
-    Kp = K + 2
-    wrows = 16
-    S, B = 2, 1024
-    c2 = np.sort(rng.integers(0, V1, (S, B)).astype(np.int32), axis=1)
-    x2 = rng.integers(0, V2, (S, B)).astype(np.int32)
-    n2 = rng.integers(1, 40, (S, B)).astype(np.float64)
-    rw = pk.packed_rows(V1, Kp, multiple=wrows)
-    rh = pk.logical_rows(V2, multiple=wrows)
-    m2, f2, l2, winw, sx, rowsx, winx = prep_glove_static(
-        c2, x2, n2, V1, K, rw, rh, wrows, wrows, 10.0, 0.75)
-    Zc_np = np.concatenate(
-        [rng.normal(size=(V1, K)) * 0.1, rng.normal(size=(V1, 1)),
-         np.ones((V1, 1))], axis=1).astype(np.float32)
-    Zx_np = np.concatenate(
-        [rng.normal(size=(V2, K)) * 0.1, np.ones((V2, 1)),
-         rng.normal(size=(V2, 1))], axis=1).astype(np.float32)
-    Zc = jnp.asarray(pk.pack_array(Zc_np, Kp, multiple=wrows))
-    Zx = jnp.asarray(pk.pack_logical(Zx_np, Kp, multiple=wrows))
-    opt = PackedAdaGrad(0.05)
-    oc, ox = opt.init(Zc), opt.init(Zx)
-    Zc2, Zx2, _, _, loss = packed_glove_epoch(
-        Zc, Zx, oc, ox, *(jnp.asarray(a) for a in
-                          (c2, x2, m2, f2, l2, sx, rowsx, winx, winw)),
-        jnp.asarray(S * B, jnp.int32), lr=0.05, K=K, rw=rw, rh=rh,
-        wrows_w=wrows, wrows_h=wrows, interpret=True)
-    s = pk.num_slots(Kp)
-    Zc_log = np.asarray(Zc2)[:, :s * Kp].reshape(-1, Kp)[:V1]
-    Zx_log = np.asarray(Zx2)[:V2, :Kp]
-    # every touched embedding/bias column moved; the constant columns
-    # must be BIT-exactly 1
-    assert np.isfinite(float(loss))
-    np.testing.assert_array_equal(Zc_log[:, K + 1], 1.0)
-    np.testing.assert_array_equal(Zx_log[:, K], 1.0)
-    assert not np.allclose(Zc_log[:, :K], Zc_np[:V1, :K])
-    assert not np.allclose(Zx_log[:, K + 1], Zx_np[:V2, K + 1])
-
-
-def test_glove_packed_validation():
-    """packed='on' rejects unsupported configs loudly."""
-    with pytest.raises(ValueError, match="fused"):
-        GloVe(num_components=8, bias_mode="kfold", packed="on").fit(
-            _toy_cooc(), num_epochs=1)
-    with pytest.raises(ValueError, match="lane-pack"):
-        GloVe(num_components=125, packed="on").fit(_toy_cooc(), num_epochs=1)
-    with pytest.raises(ValueError):
-        GloVe(packed="maybe")
-
-
-def test_glove_packed_resume_matches_uninterrupted(tmp_path):
-    """Packed-engine checkpoints use the XLA fused schema; mid-fit resume
-    equals the uninterrupted packed fit (streams are static per fit and
-    the shuffle is pinned by the ambient seed)."""
-    X = _toy_cooc(V=60, seed=9)
-    p = str(tmp_path / "gp.npz")
-    kw = dict(num_components=8, batch_size=1024, packed="on",
-              learning_rate=0.05)
-
-    np.random.seed(21)
-    m1 = GloVe(**kw)
-    m1.fit(X, num_epochs=6)
-
-    np.random.seed(21)
-    m2 = GloVe(**kw)
-    m2.fit(X, num_epochs=3, checkpoint_path=p)
-    np.random.seed(21)
-    m3 = GloVe(**kw)
-    m3.fit(X, num_epochs=6, checkpoint_path=p, resume=True)
-
-    np.testing.assert_allclose(m3.W, m1.W, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(m3.bias, m1.bias, rtol=1e-4, atol=1e-5)
-
-
-def test_glove_packed_cross_engine_resume(tmp_path):
-    """A checkpoint written by the packed GloVe engine resumes in the XLA
-    fused engine and vice versa.  The shared fused schema stores
-    single-device (logical) shapes, so the XLA side runs on a 1-device
-    mesh here — GloVe checkpoints are mesh-padding-specific across
-    device counts (pre-existing XLA-engine behavior)."""
-    import jax
-
-    from cymf_tpu.parallel import MeshContext, use_mesh
-    X = _toy_cooc(V=60, seed=9)
-    ctx = MeshContext.create(jax.devices()[:1])
-    for src_p, dst_p in (("on", "off"), ("off", "on")):
-        with use_mesh(ctx):
-            p = str(tmp_path / f"ck_{src_p}.npz")
-            kw = dict(num_components=8, batch_size=1024,
-                      learning_rate=0.05)
-            np.random.seed(5)
-            m1 = GloVe(packed=src_p, **kw)
-            m1.fit(X, num_epochs=2, checkpoint_path=p)
-            W1, b1 = m1.W.copy(), m1.bias.copy()
-
-            # resuming with num_epochs == saved epochs runs zero extra
-            # epochs -> must reproduce the checkpointed tables
-            np.random.seed(5)
-            m2 = GloVe(packed=dst_p, **kw)
-            m2.fit(X, num_epochs=2, checkpoint_path=p, resume=True)
-            np.testing.assert_allclose(m2.W, W1, rtol=1e-5, atol=1e-6)
-            np.testing.assert_allclose(m2.bias, b1, rtol=1e-5, atol=1e-6)
-
-            # one further epoch trains through the converted accumulators
-            np.random.seed(5)
-            m3 = GloVe(packed=dst_p, **kw)
-            m3.fit(X, num_epochs=3, checkpoint_path=p, resume=True)
-            assert np.isfinite(m3.W).all()
-            assert not np.allclose(m3.W, W1)

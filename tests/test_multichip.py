@@ -50,14 +50,14 @@ def test_graft_dryrun_multichip():
 
 
 def test_graft_entry_compiles():
-    """entry() is the flagship packed v4 step (round 5): it returns the
-    updated packed tables + the step loss."""
+    """entry() is one epoch of the XLA BPR engine: it returns the updated
+    tables, optimizer state and the mean loss."""
     import __graft_entry__ as g
     fn, args = g.entry()
-    Wp, Hp, loss = jax.jit(fn)(*args)
+    W, H, _, _, loss = jax.jit(fn)(*args)
     assert np.isfinite(float(loss))
-    assert np.isfinite(np.asarray(Wp)).all()
-    assert Wp.shape == args[0].shape and Hp.shape == args[1].shape
+    assert np.isfinite(np.asarray(W)).all()
+    assert W.shape == args[0].shape and H.shape == args[1].shape
 
 
 def test_relmf_same_result_1dev_vs_8dev(data):
@@ -239,7 +239,7 @@ def test_expomf_nondivisible_shapes_1dev_vs_8dev():
 
 
 def test_glove_kfold_same_result_1dev_vs_8dev():
-    """The reference-exact kfold bias mode through its round-4 explicit
+    """The reference-exact kfold bias mode through its explicit
     shard_map epoch must equal single-device training."""
     from scipy import sparse
     from cymf_tpu import GloVe
@@ -259,197 +259,3 @@ def test_glove_kfold_same_result_1dev_vs_8dev():
     W8, b8 = run(jax.devices())
     np.testing.assert_allclose(W8, W1, rtol=2e-3, atol=2e-5)
     np.testing.assert_allclose(b8, b1, rtol=2e-3, atol=2e-5)
-
-
-def test_bpr_packed_sharded_same_result_1dev_vs_8dev(data):
-    """The PACKED engine's explicit shard_map form (row-sharded packed W,
-    replicated logical H, shard-contiguous sample slices, one H psum per
-    step — round-4) must equal the single-device packed engine: negative
-    streams are drawn globally before slicing, so the fit is
-    mesh-size-invariant up to float summation order."""
-    def run(devices):
-        with use_mesh(MeshContext.create(devices)):
-            m = BPR(num_components=8, learning_rate=0.02, batch_size=128,
-                    packed="on")
-            m.fit(data.train, num_epochs=3, verbose=False, seed=3)
-            return m.W.copy(), m.H.copy(), m.last_loss
-
-    W1, H1, l1 = run(jax.devices()[:1])
-    W8, H8, l8 = run(jax.devices())
-    np.testing.assert_allclose(l8, l1, rtol=1e-5)
-    np.testing.assert_allclose(W8, W1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(H8, H1, rtol=2e-3, atol=2e-5)
-
-
-def test_bpr_packed_sharded_medium_nondivisible_1dev_vs_8dev():
-    """Sharded packed engine at shapes where nothing divides evenly
-    (users, items, batch vs the 8-device mesh) — shard slice boundaries
-    fall mid-stream and the last shard holds all global padding."""
-    d = SyntheticImplicitDataset(num_user=3001, num_item=1203, rank=6,
-                                 density=0.005, seed=21)
-
-    def run(devices):
-        with use_mesh(MeshContext.create(devices)):
-            # sgd: accumulation-ORDER robust (adam's -lr*sign(g)
-            # first-touch step amplifies tiny fp reorder diffs to ~2*lr
-            # on ~0.1% of elements — the DRIFT class of
-            # scripts/tpu_kernel_smoke.py)
-            m = BPR(num_components=12, learning_rate=0.02,
-                    batch_size=2048, packed="on", optimizer="sgd")
-            m.fit(d.train, num_epochs=2, verbose=False, seed=9)
-            return m.W.copy(), m.H.copy()
-
-    W1, H1 = run(jax.devices()[:1])
-    W8, H8 = run(jax.devices())
-    assert W1.shape == (3001, 12) and H1.shape == (1203, 12)
-    np.testing.assert_allclose(W8, W1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(H8, H1, rtol=2e-3, atol=2e-5)
-
-
-def test_bpr_packed_neg_pool_multidevice_warns(data):
-    """The shared-negative pool is a single-chip VMEM structure: on a
-    multi-device mesh it warns and runs on the default device instead of
-    taking the sharded path (which has no pool form)."""
-    with use_mesh(MeshContext.create(jax.devices())):
-        m = BPR(num_components=8, batch_size=128, packed="on",
-                neg_pool=128)
-        with pytest.warns(UserWarning, match="single-chip"):
-            m.fit(data.train, num_epochs=1, verbose=False, seed=3)
-        assert m.packed_kernel_ == 8 and np.isfinite(m.W).all()
-
-
-def test_bpr_packed_sharded_resume_cross_mesh(data, tmp_path):
-    """A checkpoint written mid-fit by the 8-device sharded packed
-    engine resumes on ONE device (and vice versa) and matches the
-    uninterrupted single-device fit — cross-device-count resume for the
-    packed schema (round-3 VERDICT #31 extended to the sharded form)."""
-    p = str(tmp_path / "ck.npz")
-
-    def make(devices):
-        return BPR(num_components=8, learning_rate=0.02, batch_size=128,
-                   packed="on")
-
-    with use_mesh(MeshContext.create(jax.devices()[:1])):
-        m0 = make(None)
-        m0.fit(data.train, num_epochs=4, verbose=False, seed=3)
-        W_ref, H_ref = m0.W.copy(), m0.H.copy()
-
-    with use_mesh(MeshContext.create(jax.devices())):
-        m1 = make(None)
-        m1.fit(data.train, num_epochs=2, verbose=False, seed=3,
-               checkpoint_path=p)
-    with use_mesh(MeshContext.create(jax.devices()[:1])):
-        m2 = make(None)
-        m2.fit(data.train, num_epochs=4, verbose=False, seed=3,
-               checkpoint_path=p, resume=True)
-    np.testing.assert_allclose(m2.W, W_ref, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(m2.H, H_ref, rtol=2e-3, atol=2e-5)
-
-
-def test_glove_packed_sharded_same_result_1dev_vs_8dev():
-    """The packed GloVe engine's shard_map form (row-sharded packed
-    central table, replicated context table, one psum per step) must
-    equal single-device packed training — streams are static per fit
-    and sliced from the same global sort."""
-    from scipy import sparse
-
-    from cymf_tpu import GloVe
-    rng = np.random.default_rng(8)
-    V = 90
-    dense = (rng.random((V, V)) < 0.1) * rng.integers(1, 30, (V, V))
-    np.fill_diagonal(dense, 0)
-    X = sparse.csr_matrix(dense.astype(np.float64))
-
-    def run(devices):
-        with use_mesh(MeshContext.create(devices)):
-            np.random.seed(6)
-            m = GloVe(num_components=8, batch_size=1024, packed="on",
-                      learning_rate=0.05)
-            m.fit(X, num_epochs=4)
-            return (m.W_central.copy(), m.W_context.copy(),
-                    m.bias.copy(), m.context_bias.copy(), m.last_loss)
-
-    Wc1, Wx1, b1, bx1, l1 = run(jax.devices()[:1])
-    Wc8, Wx8, b8, bx8, l8 = run(jax.devices())
-    np.testing.assert_allclose(l8, l1, rtol=1e-5)
-    np.testing.assert_allclose(Wc8, Wc1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(Wx8, Wx1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(b8, b1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(bx8, bx1, rtol=2e-3, atol=2e-5)
-
-
-def test_bpr_wide_sharded_same_result_1dev_vs_8dev():
-    """The WIDE engine's explicit shard_map form (round 5 — row-sharded
-    wide W, replicated wide H, shard-contiguous sample slices, one
-    (rh, Kp+128) psum per step) must equal the single-device wide
-    engine: negative streams are drawn globally before slicing, so the
-    fit is mesh-size-invariant up to float summation order."""
-    from scipy import sparse
-    X = sparse.random(300, 150, density=0.1, random_state=3, format="csr")
-    X.data[:] = 1.0
-
-    def run(devices):
-        with use_mesh(MeshContext.create(devices)):
-            # sgd: accumulation-ORDER robust (see the packed
-            # non-divisible test's adam first-touch note)
-            m = BPR(num_components=128, learning_rate=0.02,
-                    batch_size=1024, packed="on", optimizer="sgd")
-            m.fit(X, num_epochs=2, verbose=False, seed=3)
-            return m.W.copy(), m.H.copy(), m.last_loss
-
-    W1, H1, l1 = run(jax.devices()[:1])
-    W8, H8, l8 = run(jax.devices())
-    assert W1.shape == (300, 128) and H1.shape == (150, 128)
-    np.testing.assert_allclose(l8, l1, rtol=1e-5)
-    np.testing.assert_allclose(W8, W1, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(H8, H1, rtol=2e-3, atol=2e-5)
-
-
-def test_bpr_wide_sharded_nondivisible_adam_1dev_vs_8dev():
-    """Sharded wide engine with adam at shapes where users/items/batch
-    don't divide the mesh — slice boundaries fall mid-stream and the
-    last shard holds all global padding."""
-    d = SyntheticImplicitDataset(num_user=1301, num_item=403, rank=6,
-                                 density=0.01, seed=21)
-
-    def run(devices):
-        with use_mesh(MeshContext.create(devices)):
-            m = BPR(num_components=130, learning_rate=0.02,
-                    batch_size=1024, packed="on")
-            m.fit(d.train, num_epochs=2, verbose=False, seed=9)
-            return m.W.copy(), m.H.copy()
-
-    W1, H1 = run(jax.devices()[:1])
-    W8, H8 = run(jax.devices())
-    assert W1.shape == (1301, 130) and H1.shape == (403, 130)
-    # adam first-touch sign flips under summation reorder bound the
-    # per-element diff at ~2*lr on a tiny fraction of elements
-    assert np.mean(np.abs(W8 - W1) > 4 * 0.02) < 0.005
-    assert np.mean(np.abs(H8 - H1) > 4 * 0.02) < 0.005
-
-
-def test_bpr_wide_sharded_resume_cross_mesh(tmp_path):
-    """A checkpoint written mid-fit by the 8-device sharded wide engine
-    resumes on ONE device (and vice versa) and matches the uninterrupted
-    single-device fit — cross-device-count resume for the wide schema."""
-    from scipy import sparse
-    X = sparse.random(300, 150, density=0.1, random_state=3, format="csr")
-    X.data[:] = 1.0
-    p = str(tmp_path / "ckw.npz")
-    kw = dict(num_components=128, learning_rate=0.02, batch_size=1024,
-              packed="on", optimizer="sgd")
-
-    with use_mesh(MeshContext.create(jax.devices()[:1])):
-        m0 = BPR(**kw)
-        m0.fit(X, num_epochs=4, verbose=False, seed=3)
-        W_ref, H_ref = m0.W.copy(), m0.H.copy()
-
-    with use_mesh(MeshContext.create(jax.devices())):
-        m1 = BPR(**kw)
-        m1.fit(X, num_epochs=2, verbose=False, seed=3, checkpoint_path=p)
-    with use_mesh(MeshContext.create(jax.devices()[:1])):
-        m2 = BPR(**kw)
-        m2.fit(X, num_epochs=4, verbose=False, seed=3, checkpoint_path=p,
-               resume=True)
-    np.testing.assert_allclose(m2.W, W_ref, rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(m2.H, H_ref, rtol=2e-3, atol=2e-5)

@@ -1,6 +1,6 @@
 """Multi-process (2-controller) distributed smoke — exercises
 ``initialize_distributed`` + global-mesh training end to end on the CPU
-backend (no TPU needed).  Heavy (spawns 2 jax processes), so marked slow."""
+backend (no accelerator needed).  Heavy (spawns 2 jax processes), so marked slow."""
 
 import os
 import subprocess

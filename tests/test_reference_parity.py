@@ -57,7 +57,7 @@ def _sequential_bpr(X, K, lr, wd, num_epochs, seed=4321, sample_seed=1234):
 def _eval_mean(ev, W, H, n_seeds=4):
     """Average metrics over several evaluator negative-draw seeds — the
     150-user synthetic eval is otherwise sensitive to a single candidate
-    draw (a fragile gate flagged in the round-2 review)."""
+    draw."""
     outs = [ev.evaluate(W, H, seed=100 + s) for s in range(n_seeds)]
     return {k: np.mean([o[k] for o in outs]) for k in outs[0]}
 
@@ -66,7 +66,7 @@ def _eval_mean(ev, W, H, n_seeds=4):
 def test_bpr_batch_matches_sequential_reference_quality():
     """3-seed mean quality within 0.01 of the sequential replica, with an
     absolute floor on BOTH sides (a degrading replica can no longer let a
-    regressed trainer pass — VERDICT r2 weak #7)."""
+    regressed trainer pass)."""
     data = SyntheticImplicitDataset(num_user=150, num_item=100, rank=4,
                                     density=0.12, seed=21)
     X = sparse.csr_matrix(data.train).astype(np.float64)
@@ -132,8 +132,7 @@ def _sequential_relmf(X, K, lr, wd, clip, num_epochs, seed=4321,
 
 @pytest.mark.slow
 def test_relmf_batch_matches_sequential_reference_quality():
-    """RelMF XLA batch engine vs the per-cell sequential replica (new in
-    round 2 — VERDICT r1 weak #5)."""
+    """RelMF XLA batch engine vs the per-cell sequential replica."""
     from cymf_tpu import RelMF
 
     data = SyntheticImplicitDataset(num_user=80, num_item=60, rank=4,
@@ -193,7 +192,7 @@ def _sequential_glove(X, K, lr, x_max, alpha, num_epochs, seed=7):
 @pytest.mark.slow
 def test_glove_batch_matches_sequential_reference_loss():
     """GloVe XLA batch engine reaches the sequential replica's training
-    loss (new in round 2 — VERDICT r1 weak #5)."""
+    loss."""
     from cymf_tpu import GloVe
 
     rng = np.random.default_rng(11)

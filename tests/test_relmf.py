@@ -110,374 +110,3 @@ def test_chunked_epoch_matches_monolithic():
     np.testing.assert_array_equal(Wc, Wm)
     np.testing.assert_array_equal(Hc, Hm)
     assert lc == pytest.approx(lm, rel=1e-6)
-
-
-class TestPackedRelMF:
-    """The packed fused engine (`ops/relmf_epoch.py`, round 4)."""
-
-    def test_packed_epoch_matches_dense_reference(self):
-        """packed_relmf_epoch == an unpacked gather/scatter/sparse-Adam
-        replica on identical (u, i, label) streams, including the
-        reference's added-decay sign quirk and the wd*l2 loss term."""
-        import jax.numpy as jnp
-
-        from cymf_tpu.ops import packed as pk
-        from cymf_tpu.ops.packed_epoch import (make_packed_optimizer,
-                                               unpack_device)
-        from cymf_tpu.ops.relmf_epoch import (packed_relmf_epoch,
-                                              prep_relmf_epoch)
-
-        rng = np.random.default_rng(3)
-        U, I, K, B, S = 210, 140, 12, 1024, 3
-        lr, wd, M = 0.02, 0.01, 0.1
-        wrows = 16
-        W0 = (rng.normal(size=(U, K)) * 0.1).astype(np.float32)
-        H0 = (rng.normal(size=(I, K)) * 0.1).astype(np.float32)
-        pos = rng.random((U, I)) < 0.08
-        pu, pi = np.nonzero(pos)
-        pos_keys = np.sort(pu.astype(np.int64) * I + pi)
-        col_mean = pos.mean(axis=0)
-        props = np.maximum(col_mean / col_mean.max(), 1e-5) ** 0.5
-
-        rw = pk.packed_rows(U, K, multiple=wrows)
-        rh = pk.logical_rows(I, multiple=wrows)
-        u2, i2, lab, winw, si, rowsi, wini = prep_relmf_epoch(
-            7, 0, S, B, U, I, K, rw, rh, wrows, wrows, pos_keys)
-        invp = np.zeros((rh, 1), np.float32)
-        invp[:I, 0] = 1.0 / np.maximum(props, M)
-
-        Wp = jnp.asarray(pk.pack_array(W0, K, multiple=wrows))
-        Hp = jnp.asarray(pk.pack_logical(H0, K, multiple=wrows))
-        opt = make_packed_optimizer("adam", lr)
-        Wp2, Hp2, _, _, loss = packed_relmf_epoch(
-            Wp, Hp, opt.init(Wp), opt.init(Hp),
-            jnp.asarray(u2), jnp.asarray(i2), jnp.asarray(lab),
-            jnp.asarray(si), jnp.asarray(rowsi), jnp.asarray(wini),
-            jnp.asarray(winw), jnp.asarray(invp), jnp.asarray(S * B),
-            opt_name="adam", lr=lr, weight_decay=wd, K=K, rw=rw, rh=rh,
-            wrows_w=wrows, wrows_h=wrows, interpret=True)
-        W_got = np.asarray(unpack_device(Wp2, K))[:U]
-        H_got = np.asarray(Hp2[:I, :K])
-
-        def adam_dense(T, m, v, gbuf, touched):
-            touched = touched[:, None] > 0
-            m2 = np.where(touched, 0.9 * m + 0.1 * gbuf, m)
-            v2 = np.where(touched, 0.999 * v + 0.001 * gbuf**2, v)
-            delta = np.where(
-                touched,
-                -lr * (m2 / 0.1) / (np.sqrt(v2 / 0.001) + 1e-8), 0)
-            return T + delta, m2, v2
-
-        W, H = W0.copy(), H0.copy()
-        mW = np.zeros_like(W); vW = np.zeros_like(W)
-        mH = np.zeros_like(H); vH = np.zeros_like(H)
-        loss_ref = 0.0
-        for t in range(S):
-            u, i = u2[t], i2[t]
-            th = lab[t].astype(np.float64) / np.maximum(props[i], M)
-            wu, hi = W[u].astype(np.float64), H[i].astype(np.float64)
-            s = np.sum(wu * hi, axis=1, keepdims=True)
-            thc = th[:, None]
-            # model.pyx:130-139: shared factor (s - theta), decay ADDED
-            g_w = (s - thc) * hi + wd * wu
-            g_h = (s - thc) * wu + wd * hi
-            l2 = np.sum(wu**2, axis=1) + np.sum(hi**2, axis=1)
-            loss_ref += np.sum(th * (1 - s[:, 0])**2
-                               + (1 - th) * s[:, 0]**2 + wd * l2)
-            gW = np.zeros_like(W); np.add.at(gW, u, g_w.astype(np.float32))
-            gH = np.zeros_like(H); np.add.at(gH, i, g_h.astype(np.float32))
-            cW = np.zeros(U); np.add.at(cW, u, 1.0)
-            cH = np.zeros(I); np.add.at(cH, i, 1.0)
-            W, mW, vW = adam_dense(W, mW, vW, gW, cW)
-            H, mH, vH = adam_dense(H, mH, vH, gH, cH)
-        loss_ref /= S * B
-
-        np.testing.assert_allclose(float(loss), loss_ref, rtol=1e-4)
-        np.testing.assert_allclose(W_got, W, rtol=3e-3, atol=3e-4)
-        np.testing.assert_allclose(H_got, H, rtol=3e-3, atol=3e-4)
-
-    def test_fit_packed_quality_matches_xla(self):
-        """Public RelMF.fit with packed='on' (single-device mesh) reaches
-        the same ranking quality as the XLA engine — different (equally
-        uniform) draw streams, same per-batch update semantics."""
-        import jax
-
-        import cymf_tpu
-        from cymf_tpu.dataset import SyntheticImplicitDataset
-        from cymf_tpu.parallel import MeshContext, use_mesh
-
-        d = SyntheticImplicitDataset(num_user=300, num_item=200, rank=5,
-                                     density=0.08, seed=11)
-        ev = cymf_tpu.AoaEvaluator(d.test, d.train, metrics=["DCG"], k=5)
-        res = {}
-        with use_mesh(MeshContext.create(jax.devices()[:1])):
-            for packed in ("off", "on"):
-                m = cymf_tpu.RelMF(num_components=10, learning_rate=0.01,
-                                   batch_size=4096, packed=packed)
-                m.fit(d.train, num_epochs=8, verbose=False, seed=3)
-                res[packed] = ev.evaluate(m.W, m.H)["DCG@5"]
-                assert np.isfinite(m.last_loss)
-        assert res["on"] > 0.8 * res["off"], res
-
-    def test_packed_resume_matches_uninterrupted(self, tmp_path):
-        """Packed RelMF checkpoints resume mid-fit (the packed schema via
-        the shared BPR-style converter); an XLA-written checkpoint also
-        resumes in the packed engine (cross-engine, logical -> packed)."""
-        import jax
-
-        import cymf_tpu
-        from cymf_tpu.dataset import SyntheticImplicitDataset
-        from cymf_tpu.parallel import MeshContext, use_mesh
-
-        d = SyntheticImplicitDataset(num_user=120, num_item=80, rank=4,
-                                     density=0.1, seed=5)
-        p = str(tmp_path / "rp.npz")
-        kw = dict(num_components=8, learning_rate=0.02, batch_size=1024)
-        with use_mesh(MeshContext.create(jax.devices()[:1])):
-            m1 = cymf_tpu.RelMF(packed="on", **kw)
-            m1.fit(d.train, num_epochs=6, verbose=False, seed=7)
-
-            m2 = cymf_tpu.RelMF(packed="on", **kw)
-            m2.fit(d.train, num_epochs=3, verbose=False, seed=7,
-                   checkpoint_path=p)
-            m3 = cymf_tpu.RelMF(packed="on", **kw)
-            m3.fit(d.train, num_epochs=6, verbose=False, seed=7,
-                   checkpoint_path=p, resume=True)
-            np.testing.assert_allclose(m3.W, m1.W, rtol=1e-4, atol=1e-5)
-            np.testing.assert_allclose(m3.H, m1.H, rtol=1e-4, atol=1e-5)
-
-            # cross-engine: XLA checkpoint -> packed resume trains on
-            p2 = str(tmp_path / "rx.npz")
-            mx = cymf_tpu.RelMF(packed="off", **kw)
-            mx.fit(d.train, num_epochs=2, verbose=False, seed=7,
-                   checkpoint_path=p2)
-            mp = cymf_tpu.RelMF(packed="on", **kw)
-            mp.fit(d.train, num_epochs=3, verbose=False, seed=7,
-                   checkpoint_path=p2, resume=True)
-            assert np.isfinite(mp.W).all()
-            assert not np.allclose(mp.W, mx.W)
-
-    def test_packed_gate_validation(self):
-        """packed='on' rejects unsupported configs loudly."""
-        import cymf_tpu
-        from scipy import sparse
-
-        with pytest.raises(ValueError):
-            cymf_tpu.RelMF(packed="maybe")
-        X = sparse.random(40, 30, density=0.2, random_state=0,
-                          format="csr")
-        X.data[:] = 3.0  # non-binary
-        m = cymf_tpu.RelMF(num_components=8, packed="on")
-        with pytest.raises(ValueError, match="binarized"):
-            m.fit(X, num_epochs=1, verbose=False)
-
-    def test_packed_on_requires_xla_engine(self):
-        """packed='on' with engine='pallas' raises instead of silently
-        running unpacked (round-4 advice)."""
-        import cymf_tpu
-
-        m = cymf_tpu.RelMF(num_components=8, packed="on", engine="pallas")
-        X = sparse.random(40, 30, density=0.2, random_state=0,
-                          format="csr")
-        X.data[:] = 1.0
-        with pytest.raises(ValueError, match="engine"):
-            m.fit(X, num_epochs=1, verbose=False)
-
-    def test_window_ranges_device_matches_host(self):
-        """The in-jit window builder (round-5 on-device prep) is
-        bit-identical to the host `window_ranges` (align=128 path) on
-        random sorted streams, including empty windows and the
-        chunk-overrun re-anchor."""
-        import jax.numpy as jnp
-
-        from cymf_tpu.ops.relmf_epoch import window_ranges_device
-        from cymf_tpu.ops.sorted_accum import window_ranges
-
-        rng = np.random.default_rng(0)
-        for B, r_pad, wrows in ((1024, 512, 256), (2048, 1024, 256),
-                                (4096, 256, 256), (1024, 2048, 256)):
-            for trial in range(4):
-                # skewed draws: some windows empty, some dense
-                rows = np.sort(rng.integers(
-                    0, max(r_pad // (trial + 1), 1), B)).astype(np.int32)
-                hs, hc = window_ranges(rows, r_pad, wrows, 1024,
-                                       align=128)
-                ds, dc = window_ranges_device(
-                    jnp.asarray(rows), r_pad, wrows, 1024)
-                np.testing.assert_array_equal(np.asarray(ds), hs)
-                np.testing.assert_array_equal(np.asarray(dc), hc)
-
-    def test_fit_device_prep_quality_and_chunking(self, monkeypatch):
-        """The on-device prep engine (default) reaches XLA-engine quality
-        and is chunk-size invariant (the traced step offset makes
-        re-dispatch RNG-transparent)."""
-        import jax
-
-        import cymf_tpu
-        from cymf_tpu.dataset import SyntheticImplicitDataset
-        from cymf_tpu.parallel import MeshContext, use_mesh
-
-        d = SyntheticImplicitDataset(num_user=300, num_item=200, rank=5,
-                                     density=0.08, seed=11)
-        ev = cymf_tpu.AoaEvaluator(d.test, d.train, metrics=["DCG"], k=5)
-        kw = dict(num_components=10, learning_rate=0.01, batch_size=4096)
-        with use_mesh(MeshContext.create(jax.devices()[:1])):
-            m = cymf_tpu.RelMF(packed="on", **kw)
-            m.fit(d.train, num_epochs=8, verbose=False, seed=3)
-            assert m.prep_backend_ == "device-threefry"
-            dcg_dev = ev.evaluate(m.W, m.H)["DCG@5"]
-
-            mx = cymf_tpu.RelMF(packed="off", **kw)
-            mx.fit(d.train, num_epochs=8, verbose=False, seed=3)
-            assert dcg_dev > 0.8 * ev.evaluate(mx.W, mx.H)["DCG@5"]
-
-            # chunk-size invariance: 2-step chunks == one big scan
-            monkeypatch.setenv("CYMF_TPU_RELMF_CHUNK_STEPS", "2")
-            m2 = cymf_tpu.RelMF(packed="on", **kw)
-            m2.fit(d.train, num_epochs=2, verbose=False, seed=3)
-            monkeypatch.delenv("CYMF_TPU_RELMF_CHUNK_STEPS")
-            m3 = cymf_tpu.RelMF(packed="on", **kw)
-            m3.fit(d.train, num_epochs=2, verbose=False, seed=3)
-            np.testing.assert_allclose(m2.W, m3.W, rtol=1e-5, atol=1e-6)
-            np.testing.assert_allclose(m2.H, m3.H, rtol=1e-5, atol=1e-6)
-
-    def test_packed_cap_applies_only_to_host_prep(self, monkeypatch):
-        """Round-5: the epoch-size cap is a host-prep artifact — device
-        prep (default) has no cap; CYMF_TPU_RELMF_PREP=host restores it."""
-        import jax
-
-        import cymf_tpu
-        from cymf_tpu.parallel import MeshContext, use_mesh
-
-        huge = 1 << 40
-        with use_mesh(MeshContext.create(jax.devices()[:1])):
-            m = cymf_tpu.RelMF(num_components=8, packed="on")
-            assert m._packed_engine(True, huge) is True
-            monkeypatch.setenv("CYMF_TPU_RELMF_PREP", "host")
-            with pytest.raises(ValueError, match="MAX_CELLS"):
-                m._packed_engine(True, huge)
-
-    def test_packed_checkpoint_resumes_on_xla_engine(self, tmp_path):
-        """A PACKED-engine checkpoint (owp/ohp schema — the
-        single-device default since round 5) resumes on the XLA engine,
-        including on a multi-device mesh (round-5 review finding: this
-        transition raised KeyError before)."""
-        import jax
-
-        import cymf_tpu
-        from cymf_tpu.dataset import SyntheticImplicitDataset
-        from cymf_tpu.parallel import MeshContext, use_mesh
-
-        d = SyntheticImplicitDataset(num_user=120, num_item=80, rank=4,
-                                     density=0.1, seed=5)
-        p = str(tmp_path / "px.npz")
-        kw = dict(num_components=8, learning_rate=0.02, batch_size=1024)
-        with use_mesh(MeshContext.create(jax.devices()[:1])):
-            mp_ = cymf_tpu.RelMF(packed="on", **kw)
-            mp_.fit(d.train, num_epochs=2, verbose=False, seed=7,
-                    checkpoint_path=p)
-            W2 = mp_.W.copy()
-        # zero-extra-epoch resume reproduces the checkpointed tables
-        # (no checkpoint_path: writing would clobber p for the next leg)
-        my = cymf_tpu.RelMF(packed="off", **kw)
-        my.fit(d.train, num_epochs=2, verbose=False, seed=7,
-               checkpoint_path=p, resume=True)
-        np.testing.assert_allclose(my.W, W2, rtol=1e-5, atol=1e-6)
-
-        # resume with packed='off' on the full (8-device) mesh trains on
-        mx = cymf_tpu.RelMF(packed="off", **kw)
-        mx.fit(d.train, num_epochs=4, verbose=False, seed=7,
-               checkpoint_path=str(tmp_path / "px2.npz"), resume=False)
-        import shutil
-        shutil.copy(p, str(tmp_path / "px3.npz"))
-        mz = cymf_tpu.RelMF(packed="off", **kw)
-        mz.fit(d.train, num_epochs=4, verbose=False, seed=7,
-               checkpoint_path=str(tmp_path / "px3.npz"), resume=True)
-        assert np.isfinite(mz.W).all() and np.isfinite(mz.H).all()
-        assert not np.allclose(mz.W, W2)  # epochs 2-3 trained
-
-    def test_device_epoch_matches_host_epoch_on_same_streams(self):
-        """packed_relmf_epoch_device == packed_relmf_epoch when the host
-        engine is fed the device engine's exact draw stream (replicated
-        via the same threefry fold chain) — pins the two step bodies to
-        each other (round-5 review: the bodies are twins, a fix to one
-        must not silently miss the other)."""
-        import jax
-        import jax.numpy as jnp
-
-        from cymf_tpu.ops import packed as pk
-        from cymf_tpu.ops.hashset import build_pair_hashset, \
-            hashset_contains
-        from cymf_tpu.ops.packed_epoch import (_sorted_side,
-                                               make_packed_optimizer,
-                                               unpack_device,
-                                               window_ranges)
-        from cymf_tpu.ops.relmf_epoch import (packed_relmf_epoch,
-                                              packed_relmf_epoch_device)
-
-        rng = np.random.default_rng(3)
-        U, I, K, B, S = 210, 140, 12, 1024, 3
-        wrows = 16
-        pos = rng.random((U, I)) < 0.08
-        pu, pi = np.nonzero(pos)
-        hs = jax.tree_util.tree_map(jnp.asarray,
-                                    build_pair_hashset(pu, pi))
-        invp_col = rng.uniform(1.0, 5.0, I).astype(np.float32)
-        rw = pk.packed_rows(U, K, multiple=wrows)
-        rh = pk.logical_rows(I, multiple=wrows)
-        W0 = (rng.normal(size=(U, K)) * 0.1).astype(np.float32)
-        H0 = (rng.normal(size=(I, K)) * 0.1).astype(np.float32)
-        Wp = jnp.asarray(pk.pack_array(W0, K, multiple=wrows))
-        Hp0 = jnp.asarray(pk.pack_logical(H0, K, multiple=wrows))
-        invp_pad = np.zeros(rh, np.float32)
-        invp_pad[:I] = invp_col
-        Hp_dev = Hp0.at[:, K].set(jnp.asarray(invp_pad))
-        opt = make_packed_optimizer("adam", 0.02)
-        key = jax.random.PRNGKey(11)
-        nv = jnp.asarray(float(S * B), jnp.float32)
-
-        # both epoch fns donate their table args -> pass fresh copies
-        Wd, Hd, _, _, ld = packed_relmf_epoch_device(
-            jnp.array(Wp), jnp.array(Hp_dev), opt.init(Wp),
-            opt.init(Hp_dev), hs, key,
-            jnp.asarray(0, jnp.int32), nv, S=S, B=B, num_users=U,
-            num_items=I, opt_name="adam", lr=0.02, weight_decay=0.01,
-            K=K, rw=rw, rh=rh, wrows_w=wrows, wrows_h=wrows,
-            interpret=True)
-
-        # replicate the device draw chain on the host
-        u2 = np.empty((S, B), np.int32)
-        i2 = np.empty((S, B), np.int32)
-        lab = np.empty((S, B), np.uint8)
-        for t in range(S):
-            kt = jax.random.fold_in(key, t)
-            u = np.asarray(jax.random.randint(
-                jax.random.fold_in(kt, 0), (B,), 0, U, dtype=jnp.int32))
-            i = np.asarray(jax.random.randint(
-                jax.random.fold_in(kt, 1), (B,), 0, I, dtype=jnp.int32))
-            lb = np.asarray(hashset_contains(hs, jnp.asarray(u),
-                                             jnp.asarray(i)))
-            order = np.argsort(u, kind="stable")
-            u2[t], i2[t], lab[t] = u[order], i[order], lb[order]
-        winw = np.empty((S, 2, rw // wrows), np.int32)
-        for t in range(S):
-            winw[t, 0], winw[t, 1] = window_ranges(
-                u2[t].astype(np.int64) // pk.num_slots(K), rw, wrows,
-                1024, align=128)
-        si, rowsi, wini = _sorted_side(i2, rh, wrows, 1024)
-        invp2 = np.zeros((rh, 1), np.float32)
-        invp2[:I, 0] = invp_col
-        Wh, Hh, _, _, lh = packed_relmf_epoch(
-            jnp.array(Wp), jnp.array(Hp0), opt.init(Wp), opt.init(Hp0),
-            *(jnp.asarray(a) for a in (u2, i2, lab, si, rowsi, wini,
-                                       winw, invp2)), nv,
-            opt_name="adam", lr=0.02, weight_decay=0.01, K=K, rw=rw,
-            rh=rh, wrows_w=wrows, wrows_h=wrows, interpret=True)
-
-        np.testing.assert_allclose(float(ld), float(lh), rtol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(unpack_device(Wd, K))[:U],
-            np.asarray(unpack_device(Wh, K))[:U], rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(np.asarray(Hd[:I, :K]),
-                                   np.asarray(Hh[:I, :K]),
-                                   rtol=2e-5, atol=2e-6)

@@ -1,4 +1,4 @@
-"""Compile-time proof of multi-chip compute partitioning (VERDICT r1 #3).
+"""Compile-time proof of multi-chip compute partitioning.
 
 Compiles the explicit shard_map BPR epoch on the 8-device CPU mesh and
 asserts, from the compiled HLO:
@@ -91,7 +91,7 @@ def test_per_device_flops_shrink_with_mesh(compiled8):
 
 
 # ---------------------------------------------------------------------------
-# Sharded evaluator / recommender (VERDICT r2 #3)
+# Sharded evaluator / recommender
 # ---------------------------------------------------------------------------
 
 EU, EI, EK, EC, EG, EP, ENEG = 4096, 512, 16, 1024, 2, 8, 100
@@ -207,7 +207,7 @@ def test_recommend_only_topk_sized_collectives(rec_compiled8):
 
 
 # ---------------------------------------------------------------------------
-# RelMF / GloVe explicit shard_map epochs (VERDICT r2 #4)
+# RelMF / GloVe explicit shard_map epochs
 # ---------------------------------------------------------------------------
 
 MU, MI, MK, MB, MSTEPS = 1024, 512, 16, 256, 2
@@ -452,7 +452,7 @@ def test_glove_kfold_sharded_no_table_collectives_and_flops_shrink():
 @pytest.mark.slow
 def test_bpr_sharded_compiles_at_ml20m_scale():
     """Compile (not run) the sharded BPR epoch at REAL ML-20M shapes
-    (VERDICT r3 weak #6: the small proof shapes bound partitioning, not
+    (the small proof shapes bound partitioning, not
     collective sizing at scale).  Asserts compilation succeeds on the
     8-device mesh and no collective exceeds the design's O(B*K)
     row-exchange payload.  Note the scale fact this encodes: at ML-20M,
@@ -490,87 +490,8 @@ def test_bpr_sharded_compiles_at_ml20m_scale():
     _assert_no_table_collectives(compiled.as_text(), RU * RK)
 
 
-# ---------------------------------------------------------------------------
-# Sharded PACKED engine (round 4): the flagship kernel pipeline on a mesh
-# ---------------------------------------------------------------------------
-
-PU, PI, PK, PB, PS, PWR = 2000, 100, 8, 16384, 1, 16
-
-
-def _packed_compiled(n_devices):
-    from cymf_tpu.ops import packed as pk
-    from cymf_tpu.ops import packed_epoch as pe
-    from cymf_tpu.parallel.shard_step import sharded_packed_bpr_epoch
-
-    mesh = MeshContext.create(jax.devices()[:n_devices])
-    rng = np.random.default_rng(0)
-    users = np.sort(rng.integers(0, PU, (PS, PB)).astype(np.int32), axis=1)
-    items = rng.integers(0, PI, (PS, PB)).astype(np.int32)
-    rw = pk.packed_rows(PU, PK, multiple=PWR * n_devices)
-    rh = pk.logical_rows(PI, multiple=PWR)
-    (u_loc, i_loc, winw, si, rowsi, wini, starts, counts, Bd) = \
-        pe.prep_shard_static(users, items, PK, rw, rh, PWR, PWR, n_devices)
-    j2 = rng.integers(0, PI, (PS, PB)).astype(np.int32)
-    mask = np.ones((PS, PB), np.uint8)
-    j_loc, mf, sj, rowsj, winj = pe.prep_shard_epoch(
-        j2, mask, starts, counts, Bd, rh, PWR, n_devices)
-    W0 = rng.normal(size=(PU, PK)).astype(np.float32)
-    H0 = rng.normal(size=(PI, PK)).astype(np.float32)
-    Wp = jnp.asarray(pk.pack_array(W0, PK, multiple=PWR * n_devices))
-    Hp = jnp.asarray(pk.pack_logical(H0, PK, multiple=PWR))
-    opt = pe.make_packed_optimizer("adam", 0.01)
-    ow, oh = opt.init(Wp), opt.init(Hp)
-    fn = sharded_packed_bpr_epoch(mesh, "adam", 0.01, 0.01, PK, rw, rh,
-                                  PWR, PWR, interpret=True)
-    lowered = fn.lower(Wp, Hp, ow, oh, *(jnp.asarray(a) for a in (
-        u_loc, i_loc, si, rowsi, wini, j_loc, mf, sj, rowsj, winj, winw)),
-        jnp.asarray(PS * PB, jnp.int32))
-    return lowered.compile(), rw, rh, Bd
-
-
-@pytest.fixture(scope="module")
-def packed8():
-    assert len(jax.devices()) >= 8
-    return _packed_compiled(8)
-
-
-def test_packed_sharded_collectives_are_one_item_psum(packed8):
-    """The sharded packed engine's ONLY collective payload is the
-    (rh, 128) item-gradient psum (+ scalars): the row-sharded packed W
-    table, the optimizer moments, and the per-shard sample streams must
-    never cross a device boundary."""
-    compiled, rw, rh, _ = packed8
-    text = compiled.as_text()
-    assert "all-reduce" in text, "expected the designed H psum"
-    allowed = rh * 128  # the designed item psum payload
-    offenders = []
-    for line in text.splitlines():
-        if not any(c in line for c in _COLLECTIVES):
-            continue
-        for shape in re.findall(r"[a-z0-9]+\[([0-9,]+)\]", line):
-            dims = [int(d) for d in shape.split(",") if d]
-            elems = int(np.prod(dims)) if dims else 1
-            if elems > allowed:
-                offenders.append(line.strip()[:160])
-    assert not offenders, \
-        "collectives beyond the item psum found:\n" + "\n".join(offenders)
-
-
-def test_packed_sharded_stream_partitioned_by_construction(packed8):
-    """The per-device sample stream (static shape Bd) must be a real
-    partition of the global batch, not a replica: with balanced synthetic
-    users, each of the 8 shards sees ~B/8 samples (tile-rounded)."""
-    _, _, _, Bd = packed8
-    # at these tiny shapes rw rounds 143 packed rows up to 256, so 3 of
-    # the 8 shards own only padding rows and the real users concentrate
-    # on 5 shards (~PB/4 each after tile rounding); the bound still
-    # proves a partition, not a replica (Bd << PB)
-    assert Bd <= PB // 3, (Bd, PB)
-
-
 def test_sharded_bpr_compiles_at_ml20m_shapes():
-    """Round-3 verdict weak spot: the partition proofs only compiled tiny
-    shapes.  This compiles the XLA shard_map epoch at the REAL ML-20M
+    """The partition proofs above compile tiny shapes.  This compiles the XLA shard_map epoch at the REAL ML-20M
     bench shapes (138k users, 26.7k items, B=131072) on the 8-device mesh
     and asserts every collective payload stays batch-sized — at this
     batch the biggest legal payload is B*K (row exchange), still below
@@ -610,110 +531,3 @@ def test_sharded_bpr_compiles_at_ml20m_shapes():
     assert not offenders, \
         "beyond-batch-sized collectives at ML-20M shapes:\n" + \
         "\n".join(offenders)
-
-
-def test_glove_packed_sharded_collectives_are_one_context_psum():
-    """The sharded packed GloVe epoch's ONLY collective payload is the
-    (rh, 128) context-gradient psum (+ scalars) — the row-sharded packed
-    central table and the per-shard streams never cross devices."""
-    from cymf_tpu.ops import packed as pk
-    from cymf_tpu.ops.glove_epoch import prep_glove_shard_static
-    from cymf_tpu.ops.packed_epoch import PackedAdaGrad
-    from cymf_tpu.parallel.shard_step import sharded_packed_glove_epoch
-
-    V1, V2, K, B, S, wr, n = 2000, 150, 8, 8192, 1, 16, 8
-    Kp = K + 2
-    mesh = MeshContext.create(jax.devices()[:n])
-    rng = np.random.default_rng(0)
-    c2 = np.sort(rng.integers(0, V1, (S, B)).astype(np.int32), axis=1)
-    x2 = rng.integers(0, V2, (S, B)).astype(np.int32)
-    n2 = rng.integers(1, 40, (S, B)).astype(np.float64)
-    rw = pk.packed_rows(V1, Kp, multiple=wr * n)
-    rh = pk.logical_rows(V2, multiple=wr)
-    (c_l, x_l, m_l, f_l, l_l, winw, sx, rowsx, winx,
-     Bd) = prep_glove_shard_static(c2, x2, n2, V1, K, rw, rh, wr, wr, n,
-                                   10.0, 0.75)
-    Zc = jnp.asarray(pk.pack_array(
-        rng.normal(size=(V1, Kp)).astype(np.float32), Kp,
-        multiple=wr * n))
-    Zx = jnp.asarray(pk.pack_logical(
-        rng.normal(size=(V2, Kp)).astype(np.float32), Kp, multiple=wr))
-    opt = PackedAdaGrad(0.05)
-    fn = sharded_packed_glove_epoch(mesh, 0.05, K, rw, rh, wr, wr,
-                                    interpret=True)
-    compiled = fn.lower(
-        Zc, Zx, opt.init(Zc), opt.init(Zx),
-        *(jnp.asarray(a) for a in (c_l, x_l, m_l, f_l, l_l, sx, rowsx,
-                                   winx, winw)),
-        jnp.asarray(S * B, jnp.int32)).compile()
-    text = compiled.as_text()
-    assert "all-reduce" in text
-    allowed = rh * 128
-    offenders = []
-    for line in text.splitlines():
-        if not any(c in line for c in _COLLECTIVES):
-            continue
-        for shape in re.findall(r"[a-z0-9]+\[([0-9,]+)\]", line):
-            dims = [int(d) for d in shape.split(",") if d]
-            elems = int(np.prod(dims)) if dims else 1
-            if elems > allowed:
-                offenders.append(line.strip()[:160])
-    assert not offenders, \
-        "collectives beyond the context psum:\n" + "\n".join(offenders)
-    assert Bd < B  # the stream really is partitioned
-
-
-def test_wide_sharded_collectives_are_one_item_psum():
-    """The sharded WIDE engine's ONLY collective payload is the
-    (rh, Kp+128) item-gradient+count psum (+ scalars): the row-sharded
-    wide W table, its optimizer moments, and the per-shard sample
-    streams must never cross a device boundary (round 5 — BASELINE
-    config 5's multi-device d >= 128 discipline)."""
-    from cymf_tpu.ops import packed_epoch as pe
-    from cymf_tpu.ops.wide_epoch import (pack_wide, prep_shard_static_wide,
-                                         wide_rows, wide_shard_masks)
-    from cymf_tpu.parallel.shard_step import sharded_wide_bpr_epoch
-
-    WU, WI, WK, WB, WS, WWR, n = 3000, 200, 128, 8192, 1, 64, 8
-    mesh = MeshContext.create(jax.devices()[:n])
-    rng = np.random.default_rng(0)
-    users = np.sort(rng.integers(0, WU, (WS, WB)).astype(np.int32), axis=1)
-    items = rng.integers(0, WI, (WS, WB)).astype(np.int32)
-    rw = wide_rows(WU, WWR * n)
-    rh = wide_rows(WI, WWR)
-    (u_loc, rowsu, winw, i_loc, si, rowsi, wini, starts, counts, Bd) = \
-        prep_shard_static_wide(users, items, rw, rh, WWR, n)
-    j2 = rng.integers(0, WI, (WS, WB)).astype(np.int32)
-    mask = np.ones((WS, WB), np.uint8)
-    j_loc, mf, sj, rowsj, winj = pe.prep_shard_epoch(
-        j2, mask, starts, counts, Bd, rh, WWR, n)
-    mi, mj = wide_shard_masks(mf, si, sj)
-    W = jnp.asarray(pack_wide(
-        rng.normal(size=(WU, WK)).astype(np.float32), WK,
-        multiple=WWR * n))
-    H = jnp.asarray(pack_wide(
-        rng.normal(size=(WI, WK)).astype(np.float32), WK, multiple=WWR))
-    opt = pe.make_packed_optimizer("adam", 0.01)
-    ow, oh = opt.init(W), opt.init(H)
-    fn = sharded_wide_bpr_epoch(mesh, "adam", 0.01, 0.01, WK, rw, rh,
-                                WWR, interpret=True)
-    lowered = fn.lower(W, H, ow, oh, *(jnp.asarray(a) for a in (
-        u_loc, rowsu, winw, i_loc, si, rowsi, wini, j_loc, mf, sj,
-        rowsj, winj, mi, mj)), jnp.asarray(WS * WB, jnp.int32))
-    compiled = lowered.compile()
-    text = compiled.as_text()
-    assert "all-reduce" in text, "expected the designed H psum"
-    allowed = rh * (WK + 128)  # the designed item psum payload
-    offenders = []
-    for line in text.splitlines():
-        if not any(c in line for c in _COLLECTIVES):
-            continue
-        for shape in re.findall(r"[a-z0-9]+\[([0-9,]+)\]", line):
-            dims = [int(d) for d in shape.split(",") if d]
-            elems = int(np.prod(dims)) if dims else 1
-            if elems > allowed:
-                offenders.append(line.strip()[:160])
-    assert not offenders, \
-        "collectives beyond the item psum found:\n" + "\n".join(offenders)
-    # and the per-device stream is a real partition, not a replica
-    assert Bd <= WB // 3, (Bd, WB)

@@ -98,8 +98,8 @@ def test_wmf_invalid_solver():
 
 
 def test_woodbury_routing_matches_standard(monkeypatch):
-    """The Woodbury chunk solve (round 5 — ALS d>=128 MXU lever) routes
-    small-P chunks and produces the same fit as the standard form."""
+    """The Woodbury chunk solve routes small-P chunks and produces the
+    same fit as the standard form."""
     from scipy import sparse
 
     from cymf_tpu import WMF
@@ -145,9 +145,9 @@ def test_woodbury_invalid_mode(monkeypatch):
 
 
 def test_woodbury_auto_guard_low_weight_decay(monkeypatch):
-    """auto routing requires K >= 128 (measured: at K=64 the Cholesky
-    is cheap and Woodbury LOSES), weight > 1, and weight_decay >= 1e-3
-    (the explicit f32 A0 inverse degrades with cond(A0) ~ ||YtY||/wd)."""
+    """auto routing requires K >= 128, weight > 1, and weight_decay >=
+    1e-3 (the explicit f32 A0 inverse degrades with cond(A0) ~
+    ||YtY||/wd)."""
     monkeypatch.delenv("CYMF_TPU_ALS_CHOL", raising=False)
     X = sparse.random(60, 40, density=0.1, random_state=0, format="csr",
                       data_rvs=lambda n: np.ones(n))
@@ -156,8 +156,7 @@ def test_woodbury_auto_guard_low_weight_decay(monkeypatch):
     assert m.woodbury_max_p_ == 0  # low wd: conditioning guard
     m2 = WMF(num_components=128, weight_decay=0.01)
     m2.fit(X, num_epochs=1, verbose=False)
-    # auto chol -> blocked at K=128 -> measured Woodbury win region
-    # shrinks to P <= K/4 (docs/measurements/r5/als_roofline_blocked.log)
+    # auto chol -> blocked at K=128 -> Woodbury cap P <= K/4
     assert m2.woodbury_max_p_ == 32
     monkeypatch.setenv("CYMF_TPU_ALS_CHOL", "xla")
     m2b = WMF(num_components=128, weight_decay=0.01)
@@ -182,9 +181,8 @@ def test_woodbury_auto_guard_low_weight_decay(monkeypatch):
 
 
 def test_blocked_cholesky_matches_xla(monkeypatch):
-    """The JAX-level blocked Cholesky (round 5 — the batched-K^3 ALS
-    wall, docs/ROOFLINE.md) is bit-comparable to the XLA Cholesky path
-    and engages automatically at K >= 128."""
+    """The JAX-level blocked Cholesky is bit-comparable to the XLA
+    Cholesky path and engages automatically at K >= 128."""
     from cymf_tpu.ops.als import _solve_spd_blocked, solve_spd
 
     rng = np.random.default_rng(5)
